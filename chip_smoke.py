@@ -46,7 +46,8 @@ PHASES = ("device", "build", "kernels", "parity", "scale", "cli", "stream",
           "counters")
 
 # bench/scale_r5_2mb.json: the reference's 2 Mbp assembly
-SCALE_RECORD = {2.0: {"contigs": 18, "n50": 221925, "total": 1997960}}
+SCALE_MBP = 2.0
+SCALE_RECORD = {"contigs": 18, "n50": 221925, "total": 1997960}
 
 report = {"phases": {}}
 
@@ -166,7 +167,7 @@ def log_share(tag, wall, dev, top):
 
 def scale_config(genome_len: int, n_reads: int):
     """bench/scale_run.py's configuration (k=31, 100 bp, 8192/batch)."""
-    from faucet_tpu.config import Config
+    from faucet_tpu_torch import Config
 
     k = 31
     n_kmers = genome_len - k + 1
@@ -177,12 +178,12 @@ def scale_config(genome_len: int, n_reads: int):
                   fp_rate=0.01)
 
 
-def scale_reads(mbp: float):
+def scale_reads():
     """bench/scale_run.py's reads: repeat genome, 30x, 100 bp, 0.5%
     errors, circular, numpy default_rng(0)."""
     from faucet_tpu_torch import simulate as SIM
 
-    G = int(mbp * 1e6)
+    G = int(SCALE_MBP * 1e6)
     rng = np.random.default_rng(0)
     genome = SIM.genome_with_repeats(rng, G, n_repeats=max(4, G // 250_000),
                                      repeat_len=400)
@@ -370,7 +371,7 @@ def _table_arrays(t):
 
 @phase("parity")
 def run_parity():
-    from faucet_tpu.config import Config
+    from faucet_tpu_torch import Config
     from faucet_tpu_torch import simulate as SIM
     from faucet_tpu_torch.pipeline import Pipeline
 
@@ -436,16 +437,16 @@ def _walk_timer(profile_round=None):
 
 
 @phase("scale")
-def run_scale(mbp: float, profile: bool = False):
+def run_scale(profile: bool = False):
     import torch
 
-    from faucet_tpu.metrics import Metrics
+    from faucet_tpu_torch import Metrics
     from faucet_tpu_torch.graph import walk as W
     from faucet_tpu_torch.pipeline import Pipeline, batch_iter
 
     t0 = time.perf_counter()
-    genome, reads = scale_reads(mbp)
-    log(f"{mbp} Mbp genome, {len(reads)} reads synthesized in "
+    genome, reads = scale_reads()
+    log(f"{SCALE_MBP} Mbp genome, {len(reads)} reads synthesized in "
         f"{time.perf_counter() - t0:.2f} s")
     cfg = scale_config(len(genome), len(reads))
     p = Pipeline(cfg, Metrics(), device="cuda")
@@ -476,12 +477,11 @@ def run_scale(mbp: float, profile: bool = False):
     log(f"assembly {got}, genome-true {frac:.5f}; walk: {wst['rounds']} "
         f"rounds, {wst['steps']} steps timed in {wst['seconds']:.2f} s, "
         f"{ms_step:.3f} ms/step")
-    report["phases"]["scale"].update(mbp=mbp, phase_s=ph, walk=wst,
+    report["phases"]["scale"].update(mbp=SCALE_MBP, phase_s=ph, walk=wst,
                                      walk_ms_per_step=ms_step,
                                      genome_true=frac, **got)
-    want = SCALE_RECORD.get(mbp)
-    if want is not None and got != want:
-        raise AssertionError(f"assembly {got} != record {want}")
+    if got != SCALE_RECORD:
+        raise AssertionError(f"assembly {got} != record {SCALE_RECORD}")
     if frac < 0.99:
         raise AssertionError(f"genome-true {frac:.5f} < 0.99")
 
@@ -537,8 +537,7 @@ def run_cli():
 def run_stream(n_batches: int = 16, warmup: int = 2, profile: bool = False):
     import torch
 
-    from faucet_tpu.config import Config
-    from faucet_tpu.metrics import Metrics
+    from faucet_tpu_torch import Config, Metrics
     from faucet_tpu_torch.pipeline import Pipeline
 
     # bench.py's configuration (bench.py build())
@@ -607,8 +606,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--mbp", type=float, default=2.0,
-                    help="genome size of the scale phase")
     ap.add_argument("--profile", action="store_true",
                     help="also run one walk round and 4 stream batches "
                          "under torch.profiler (device busy share)")
@@ -631,7 +628,7 @@ def main(argv=None) -> int:
     # the main path's launches: counted from here to the end of phase 7
     KP.launches = KC.launches = 0
     if "scale" in want:
-        run_scale(args.mbp, args.profile)
+        run_scale(args.profile)
     if "cli" in want:
         run_cli()
     if "stream" in want:

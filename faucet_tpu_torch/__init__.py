@@ -9,4 +9,5 @@ Bloom mode, branch-node junction detection, two-pass file mode and
 single-pass streaming (ROADMAP.md lists what is still to port).
 """
 from faucet_tpu.config import Config  # noqa: F401
+from faucet_tpu.metrics import Metrics  # noqa: F401
 from faucet_tpu.version import __version__  # noqa: F401

@@ -112,29 +112,27 @@ def make_cascade(cfg, device=None) -> Cascade:
                    T.make(dummy_cap, device=device))
 
 
-def cascade_insert(c: Cascade, khi, klo, mask, cfg,
-                   sparse: bool = False) -> Cascade:
+def cascade_insert(c: Cascade, khi, klo, mask, cfg) -> Cascade:
     """Phase-1 load: if A contains k: B.add(k) else A.add(k), batched."""
-    return cascade_insert_nb(c, khi, klo, mask, cfg, sparse=sparse)[0]
+    return cascade_insert_nb(c, khi, klo, mask, cfg)[0]
 
 
-def cascade_insert_nb(c: Cascade, khi, klo, mask, cfg, sparse: bool = False
+def cascade_insert_nb(c: Cascade, khi, klo, mask, cfg
                       ) -> Tuple[Cascade, torch.Tensor]:
-    c, new_b, _ = cascade_insert_nbs(c, khi, klo, mask, cfg, sparse=sparse)
+    c, new_b, _ = cascade_insert_nbs(c, khi, klo, mask, cfg)
     return c, new_b
 
 
-def cascade_insert_nbs(c: Cascade, khi, klo, mask, cfg,
-                       sparse: bool = False
+def cascade_insert_nbs(c: Cascade, khi, klo, mask, cfg
                        ) -> Tuple[Cascade, torch.Tensor, torch.Tensor]:
     """cascade_insert + per-lane (new_b, solid) flags: new_b marks the lane
     whose insert first promoted its k-mer into B; solid is B membership as
     of the lane's own insert (in B or A before the batch, or an earlier
     in-batch occurrence).
 
-    The filters of `c` are updated in place and `c` is returned. `sparse`
-    (mostly-masked input, the node-endpoint inserts) needs no path of its
-    own: the kernel's sort packs the live lanes in front."""
+    The filters of `c` are updated in place and `c` is returned. Mostly
+    masked input (the node-endpoint inserts) needs no path of its own: the
+    kernel's sort packs the live lanes in front."""
     sb = cfg.shard_bits
     la = cfg.bloom_a_bits.bit_length() - 1
     lb = cfg.bloom_b_bits.bit_length() - 1

@@ -387,6 +387,6 @@ def load_batch_nodes_s(cascade: BL.Cascade, node_cascade: BL.Cascade,
     nlo = torch.cat([pk_lo.reshape(-1), sk_lo.reshape(-1)])
     node_cascade = BL.cascade_insert(node_cascade, nhi, nlo,
                                      torch.cat([new_b, new_b]),
-                                     cfg.node_view(), sparse=True)
+                                     cfg.node_view())
     return (cascade, node_cascade, new_b.sum(),
             solid.reshape(view.canon_hi.shape))
