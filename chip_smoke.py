@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of faucet_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py             # all phases, one card, ~10 minutes
+    python3 chip_smoke.py             # all phases, one card, ~7 minutes
 
 Phases (each prints its seconds; any failure raises and exits non-zero):
   1 device    torch.cuda must be available; prints the card's name and
@@ -9,7 +9,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   2 build     nvcc builds the CUDA kernels from faucet_tpu_torch/csrc
   3 kernels   each kernel against its plain torch version on the same
               CUDA inputs at the main path's shapes: bit-identical, with
-              median times (CUDA events)
+              median times (CUDA events); the scatter-OR kernels' entry
+              points (no caller on the main path) driven and counted
   4 parity    the port's Pipeline on ~50 kbp of repeat-genome reads, once
               on the CPU (plain versions) and once on CUDA (kernels):
               identical contigs, junction and sink tables
@@ -17,12 +18,22 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               bench/scale_run.py's configuration, two-pass file mode:
               18 contigs, N50 221,925, 1,997,960 bases (the record
               bench/scale_r5_2mb.json) and >= 99% genome-true bases
-  6 cli       python -m faucet_tpu_torch.cli on 0.5 Mbp of reads, two-pass
-              and --stream: FASTA, GFA and both checkpoints written,
-              contigs genome-true
-  7 stream    bench.py's configuration, Pipeline.stream_step over 16
-              batches of 8192 reads: load+scan reads/s
-  8 counters  every kernel launched during phases 5 and 7
+  6 paired    the phased repeat of tests/golden/test_pairs.py on the CPU
+              and on CUDA (identical, both phase it); then the 2 Mbp
+              genome as 600,000 mate pairs, paired two-pass file mode:
+              the reference's record PAIRED_RECORD, >= 99% genome-true
+  7 cli       python -m faucet_tpu_torch.cli on 0.5 Mbp of reads, two-pass,
+              --stream and --paired_ends two-pass: FASTA, GFA and both
+              checkpoints written, contigs genome-true; two-pass and
+              paired cover >= 99% of the genome, and paired equals the
+              reference's CLI_PAIRED_RECORD
+  8 stream    bench.py's configuration, Pipeline.stream_step over 16
+              batches of 8192 reads: load+scan reads/s; then 20 runs in
+              ABBA order, the upsert rounds compacted by the kernel or by
+              its plain version: identical tables, medians and quartiles
+  9 counters  every main-path kernel launched in each of the scale,
+              paired and stream paths (counts set to 0 just before each
+              path and read just after it)
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Details go to
@@ -42,18 +53,48 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-PHASES = ("device", "build", "kernels", "parity", "scale", "cli", "stream",
-          "counters")
+PHASES = ("device", "build", "kernels", "parity", "scale", "paired", "cli",
+          "stream", "counters")
 
 # bench/scale_r5_2mb.json: the reference's 2 Mbp assembly
 SCALE_MBP = 2.0
 SCALE_RECORD = {"contigs": 18, "n50": 221925, "total": 1997960}
+# the reference (faucet_tpu on the JAX CPU backend) on the same genome
+# shred into 600,000 mate pairs, paired two-pass file mode (PERF.md)
+PAIRED_RECORD = {"contigs": 18, "n50": 221925, "total": 1997960,
+                 "disentangled": 0, "pair_keys": 27579, "junctions": 19695,
+                 "sinks": 1557128}
 
-report = {"phases": {}}
+# phase 7's mates are drawn with their own seed; the reference's CLI
+# (faucet_tpu on the JAX CPU backend) assembles 99.8% of the genome from
+# them. (Other seeds lose whole repeat-bounded segments in the
+# reference's bubble popping, ROADMAP.md C; the port mirrors it.)
+CLI_MATES_SEED = 8
+CLI_PAIRED_RECORD = {"contigs": 8, "n50": 99741, "total": 499137}
+
+report = {"phases": {}, "launches_by_path": {}}
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def zero_counts():
+    """Set the main path's launch counts to 0."""
+    from faucet_tpu_torch.kernels import cascade as KC
+    from faucet_tpu_torch.kernels import compact as KCP
+    from faucet_tpu_torch.kernels import probe as KP
+
+    KP.launches = KC.launches = KCP.launches = 0
+
+
+def read_counts() -> dict:
+    from faucet_tpu_torch.kernels import cascade as KC
+    from faucet_tpu_torch.kernels import compact as KCP
+    from faucet_tpu_torch.kernels import probe as KP
+
+    return {"probe": KP.launches, "cascade": KC.launches,
+            "compact": KCP.launches}
 
 
 def phase(name):
@@ -165,7 +206,7 @@ def log_share(tag, wall, dev, top):
     return rec
 
 
-def scale_config(genome_len: int, n_reads: int):
+def scale_config(genome_len: int, n_reads: int, paired_ends: bool = False):
     """bench/scale_run.py's configuration (k=31, 100 bp, 8192/batch)."""
     from faucet_tpu_torch import Config
 
@@ -175,21 +216,29 @@ def scale_config(genome_len: int, n_reads: int):
                   estimated_kmers=n_kmers,
                   singletons=int(n_reads * 100 * 0.005 * k) + n_kmers,
                   junction_capacity=1 << 20, sink_capacity=4 * n_kmers,
-                  fp_rate=0.01)
+                  fp_rate=0.01, paired_ends=paired_ends)
 
 
-def scale_reads():
+def scale_reads(paired: bool = False):
     """bench/scale_run.py's reads: repeat genome, 30x, 100 bp, 0.5%
-    errors, circular, numpy default_rng(0)."""
+    errors, circular, numpy default_rng(0). Paired: the same genome shred
+    into mate pairs (insert 300), interleaved."""
     from faucet_tpu_torch import simulate as SIM
 
     G = int(SCALE_MBP * 1e6)
     rng = np.random.default_rng(0)
     genome = SIM.genome_with_repeats(rng, G, n_repeats=max(4, G // 250_000),
                                      repeat_len=400)
-    reads = SIM.shred(rng, genome, coverage=30.0, read_len=100,
-                      err_rate=0.005, circular=True)
-    return genome, reads
+    return genome, shred(SIM, rng, genome, paired)
+
+
+def shred(SIM, rng, genome, paired: bool, coverage: float = 30.0):
+    """100 bp reads at 0.5% errors (coverage per mate when paired);
+    paired: interleaved mates."""
+    reads = SIM.shred(rng, genome, coverage=coverage, read_len=100,
+                      err_rate=0.005, circular=True, paired=paired,
+                      insert=300)
+    return [x for ab in zip(*reads) for x in ab] if paired else reads
 
 
 # ---- phases -----------------------------------------------------------------
@@ -357,7 +406,127 @@ def run_kernels():
     # the same live lanes twice: the second pass promotes them into E
     res["cascade_sparse_3_3"] = check_cascade("sparse 3/3", 24, 22, 3, 3,
                                               [(hi, lo, live)] * 2)
+    res.update(check_scatter(gen, dev, lib))
+    res.update(check_compact(gen, dev, lib))
     report["kernels"] = res
+    return res
+
+
+def _bits_set(gen, n_words, dev):
+    """A filter with about an eighth of its bits set (OR must keep them)."""
+    import torch
+
+    w = torch.randint(-(1 << 31), 1 << 31, (n_words,), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    return w & 0x01010101
+
+
+def check_scatter(gen, dev, lib):
+    """scatter_or_keys (B5) at the file-mode batch, 573,440 keys (10% at
+    SENTINEL), into A (16 MB, n_hash 4) and B (4 MB, n_hash 3); then
+    scatter_or_bits (B6), 4 positions per key into 16 MB. Both equal their
+    plain versions bit for bit. Their entry points, core/bloom.bloom_insert
+    and scatter_or_bits itself (no caller in the repo), are driven once
+    each with the launch counts reset just before."""
+    import torch
+
+    from faucet_tpu_torch.core import bloom as BL
+    from faucet_tpu_torch.kernels import bloom_scatter as KS
+    from faucet_tpu_torch.kernels import build as KB
+
+    res, n = {}, 573_440
+    hi, lo = _rand_keys(gen, n, dev)
+    live = torch.rand((n,), generator=gen, device=dev) < 0.9
+
+    def compare(tag, kernel, plain, w0, args, raw):
+        got, want = kernel(w0.clone(), *args), plain(w0.clone(), *args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err or torch.equal(got, w0):
+            raise AssertionError(f"{tag}: kernel != plain (or no bit set)")
+        k_ms = cuda_ms(kernel, 20, setup=lambda: (w0.clone(), *args))
+        p_ms = cuda_ms(plain, 10, setup=lambda: (w0.clone(), *args))
+        w = w0.clone()  # OR is idempotent: every launch does the same work
+        d_ms = launch_loop_ms(lambda: KB.check(raw(w), tag))
+        log(f"{tag}: identical; per call: wrapper {k_ms * 1e3:.1f} us "
+            f"(kernel alone {d_ms * 1e3:.1f} us), plain {p_ms * 1e3:.1f} us")
+        return {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+                "max_abs_err": err}
+
+    for name, log2_bits, nh in (("A", 27, 4), ("B", 25, 3)):
+        block, h1r, h2 = BL._block_h1r_h2(hi, lo, log2_bits)
+        block = torch.where(live, block, KS.SENTINEL)
+        w0 = _bits_set(gen, 1 << (log2_bits - 5), dev)
+        res[f"scatter_keys_{name}"] = compare(
+            f"scatter_or_keys {name} n_hash {nh}", KS.scatter_or_keys,
+            KS.scatter_or_keys_plain, w0, (block, h1r, h2, nh),
+            lambda w: lib.ft_scatter_or_keys(
+                w.data_ptr(), w.shape[0], block.data_ptr(), h1r.data_ptr(),
+                h2.data_ptr(), n, nh, KB.stream_of(w)))
+    w0 = _bits_set(gen, 1 << 22, dev)
+    pos = torch.randint(0, 1 << 27, (4 * n,), generator=gen, device=dev)
+    pos = torch.where(torch.rand((4 * n,), generator=gen, device=dev) < 0.9,
+                      pos, KS.SENTINEL)
+    res["scatter_bits"] = compare(
+        "scatter_or_bits 16 MB", KS.scatter_or_bits, KS.scatter_or_bits_plain,
+        w0, (pos,), lambda w: lib.ft_scatter_or_bits(
+            w.data_ptr(), w.shape[0], pos.data_ptr(), 4 * n,
+            KB.stream_of(w)))
+
+    # the entry points, counted: bloom_insert on CUDA == on the CPU
+    KS.launches_keys = KS.launches_bits = 0
+    for log2_bits, nh in ((27, 4), (25, 3)):
+        bg = BL.make_bloom(log2_bits, dev)
+        bc = BL.make_bloom(log2_bits)
+        BL.bloom_insert(bg, hi, lo, live, nh, log2_bits)
+        BL.bloom_insert(bc, hi.cpu(), lo.cpu(), live.cpu(), nh, log2_bits)
+        if not torch.equal(bg.words.cpu(), bc.words):
+            raise AssertionError("bloom_insert: CUDA != CPU")
+    bits = KS.scatter_or_bits(w0.clone(), pos)
+    if not torch.equal(bits.cpu(), KS.scatter_or_bits(w0.cpu(), pos.cpu())):
+        raise AssertionError("scatter_or_bits: CUDA != CPU")
+    report["entry_launches"] = {"scatter_or_keys": KS.launches_keys,
+                                "scatter_or_bits": KS.launches_bits}
+    log(f"bloom_insert (A, B) and scatter_or_bits on CUDA == on the CPU; "
+        f"launches {report['entry_launches']}")
+    return res
+
+
+def check_compact(gen, dev, lib):
+    """mask_indices (B7), cap 8192, against its plain version: the scan
+    grid of one file-mode batch (573,440 lanes) at ~1.5% and ~30% live
+    (both counts above cap), and a spool flush (1,048,576 lanes, ~0.5%
+    live, count below cap)."""
+    import torch
+
+    from faucet_tpu_torch.kernels import build as KB
+    from faucet_tpu_torch.kernels import compact as KCP
+
+    res, cap = {}, 8192
+    for n, density in ((573_440, 0.015), (573_440, 0.3), (1_048_576, 0.005)):
+        mask = torch.rand((n,), generator=gen, device=dev) < density
+        idx, cnt = KCP.mask_indices(mask, cap)
+        pidx, pcnt = KCP.mask_indices_plain(mask, cap)
+        torch.cuda.synchronize()
+        m = min(int(pcnt), cap)
+        err = max(abs(int(cnt) - int(pcnt)),
+                  int((idx[:m] - pidx[:m]).abs().max()) if m else 0)
+        if err or int(pcnt) != int(mask.sum()):
+            raise AssertionError(f"mask_indices N={n} d={density}: "
+                                 "kernel != plain")
+        k_ms = cuda_ms(lambda: KCP.mask_indices(mask, cap), 20)
+        p_ms = cuda_ms(lambda: KCP.mask_indices_plain(mask, cap), 20)
+        tot = torch.empty((), dtype=torch.int64, device=dev)
+        scratch = torch.empty((n,), dtype=torch.int64, device=dev)
+        d_ms = launch_loop_ms(lambda: KB.check(lib.ft_mask_indices(
+            mask.data_ptr(), n, idx.data_ptr(), cap, tot.data_ptr(),
+            scratch.data_ptr(), KB.stream_of(mask)), "mask_indices"))
+        log(f"mask_indices N={n} count {int(pcnt)} (cap {cap}): identical; "
+            f"per call: wrapper {k_ms * 1e3:.1f} us (kernel alone "
+            f"{d_ms * 1e3:.1f} us), plain {p_ms * 1e3:.1f} us")
+        res[f"compact_{n}_{density}"] = {
+            "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "max_abs_err": err, "count": int(pcnt)}
     return res
 
 
@@ -486,6 +655,124 @@ def run_scale(profile: bool = False):
         raise AssertionError(f"genome-true {frac:.5f} < 0.99")
 
 
+def phased_case():
+    """tests/golden/test_pairs.py's phased repeat: r is planted twice
+    between four distinct junction families; mate pairs spanning each
+    copy phase it. Returns (interleaved reads, true splices, wrong ones)."""
+    from faucet_tpu_torch import simulate as SIM
+
+    rng = np.random.default_rng(4242)
+    g = lambda n: SIM.random_genome(rng, n)
+    p, q, s, t, r = g(40), g(40), g(40), g(40), g(40)
+    A, B, C, D = g(60), g(60), g(60), g(60)
+    M = [g(220) for _ in range(6)]
+    genome = (p + A + r + B + q + M[0] + s + C + r + D + t + M[1]
+              + p + M[2] + q + M[3] + s + M[4] + t + M[5])
+    m1, m2 = SIM.shred(rng, genome, coverage=60, read_len=80,
+                       circular=True, paired=True, insert=250)
+    return ([x for ab in zip(m1, m2) for x in ab], (A + r + B, C + r + D),
+            (A + r + D, C + r + B))
+
+
+def phasing(g, truths, wrongs, k: int):
+    """(true splices, wrong splices) present in the graph's contigs."""
+    from faucet_tpu_torch.core.kmer import revcomp_seq
+
+    seqs = []
+    for i in g.live():
+        c = g.contigs[i]
+        s = c.seq + (c.seq[: k - 1] if c.circular else "")
+        seqs += [s, revcomp_seq(s)]
+    joined = "#".join(seqs)
+    return (sum(x in joined for x in truths),
+            sum(x in joined for x in wrongs))
+
+
+@phase("paired")
+def run_paired():
+    """(a) The phased repeat in Bloom mode, on the CPU and on CUDA:
+    identical contigs, junction, sink and pair tables, and both phase it.
+    (b) 2 Mbp paired (the scale genome shred into mate pairs), two-pass
+    file mode: the reference's record PAIRED_RECORD, >= 99% genome-true."""
+    import torch
+
+    from faucet_tpu_torch import Config, Metrics
+    from faucet_tpu_torch.graph import walk as W
+    from faucet_tpu_torch.pipeline import Pipeline, batch_iter
+
+    reads, truths, wrongs = phased_case()
+    cfg = Config(size_kmer=21, max_read_length=80, batch_reads=128,
+                 estimated_kmers=1 << 15, singletons=1 << 15,
+                 junction_capacity=1 << 13, sink_capacity=1 << 14,
+                 pair_capacity=1 << 14, paired_ends=True)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = Pipeline(cfg, Metrics(), device=dev)
+        p.load_reads(reads)
+        p.scan_paired(reads)
+        g = p.clean_graph(p.build())
+        ph = phasing(g, truths, wrongs, 21)
+        dis = p.metrics.counters.get("clean_disentangled", 0)
+        log(f"phased repeat on {dev}: {len(g.live())} contigs, "
+            f"{int(p.pairs.count)} pair keys, disentangled {dis}, "
+            f"splices true/wrong {ph}")
+        if ph != (2, 0) or dis < 1:
+            raise AssertionError(f"{dev}: the repeat is not phased")
+        out[dev] = (sorted((g.contigs[i].canonical_seq(), g.contigs[i].cov)
+                           for i in g.live()),
+                    [a for t in (p.junctions, p.sinks, p.pairs)
+                     for a in _table_arrays(t)], p.pair_counts())
+    (ca, ta, pa), (cb, tb, pb) = out["cpu"], out["cuda"]
+    if ca != cb or pa != pb or not all(
+            np.array_equal(x, y) for x, y in zip(ta, tb)):
+        raise AssertionError("phased repeat: CPU and CUDA differ")
+    log("phased repeat: CPU and CUDA identical")
+
+    t0 = time.perf_counter()
+    genome, reads = scale_reads(paired=True)
+    log(f"{SCALE_MBP} Mbp genome, {len(reads)} interleaved mates "
+        f"synthesized in {time.perf_counter() - t0:.2f} s")
+    cfg = scale_config(len(genome), len(reads), paired_ends=True)
+    p = Pipeline(cfg, Metrics(), device="cuda")
+    ph = {}
+    orig, wrapped, wst = _walk_timer()
+    W.walk_round = wrapped
+    try:
+        for name, fn in (
+                ("load", lambda: p.load_batches(batch_iter(reads, cfg))),
+                ("scan_paired",
+                 lambda: p.scan_paired_batches(batch_iter(reads, cfg))),
+                ("graph_build", p.build)):
+            t = time.perf_counter()
+            g = fn()
+            torch.cuda.synchronize()
+            ph[name] = time.perf_counter() - t
+            log(f"  {name}: {ph[name]:.2f} s")
+    finally:
+        W.walk_round = orig
+    log(f"  walk: {wst['rounds']} rounds, {wst['steps']} steps timed in "
+        f"{wst['seconds']:.2f} s, "
+        f"{1e3 * wst['seconds'] / max(wst['steps'], 1):.3f} ms/step")
+    t = time.perf_counter()
+    g = p.clean_graph(g)
+    ph["clean"] = time.perf_counter() - t
+    contigs = [g.contigs[i].seq for i in g.live()]
+    lens = [len(c) for c in contigs]
+    got = {"contigs": len(contigs), "n50": n50(lens), "total": sum(lens),
+           "disentangled": p.metrics.counters.get("clean_disentangled", 0),
+           "pair_keys": int(p.pairs.count),
+           "junctions": int(p.junctions.count), "sinks": int(p.sinks.count)}
+    frac = genome_true_frac(contigs, genome)
+    log(f"paired assembly {got}, genome-true {frac:.5f}, "
+        f"{ph['clean']:.2f} s clean")
+    report["phases"]["paired"].update(phase_s=ph, walk=wst,
+                                      genome_true=frac, **got)
+    if got != PAIRED_RECORD:
+        raise AssertionError(f"paired {got} != record {PAIRED_RECORD}")
+    if frac < 0.99:
+        raise AssertionError(f"paired genome-true {frac:.5f} < 0.99")
+
+
 @phase("cli")
 def run_cli():
     from faucet_tpu_torch import simulate as SIM
@@ -494,22 +781,27 @@ def run_cli():
     rng = np.random.default_rng(5)
     genome = SIM.genome_with_repeats(rng, 500_000, n_repeats=4,
                                      repeat_len=400)
-    reads = SIM.shred(rng, genome, coverage=30.0, read_len=100,
-                      err_rate=0.005, circular=True)
+    reads = shred(SIM, rng, genome, False)
+    # 15x per mate: the same 30x of reads as the unpaired runs
+    mates = shred(SIM, np.random.default_rng(CLI_MATES_SEED), genome, True,
+                  coverage=15.0)
     cfg = scale_config(len(genome), len(reads))
     with tempfile.TemporaryDirectory() as d:
-        fa = os.path.join(d, "reads.fa")
+        fa, fp = os.path.join(d, "reads.fa"), os.path.join(d, "mates.fa")
         SIM.write_fasta(fa, reads)
-        for mode in ("two_pass", "stream"):
+        SIM.write_fasta(fp, mates)
+        for mode in ("two_pass", "stream", "paired"):
             prefix = os.path.join(d, mode)
+            src = fp if mode == "paired" else fa
             cmd = [sys.executable, "-m", "faucet_tpu_torch.cli",
-                   "-read_load_file", fa, "-size_kmer", "31",
+                   "-read_load_file", src, "-size_kmer", "31",
                    "-max_read_length", "100",
                    "-estimated_kmers", str(cfg.estimated_kmers),
                    "-singletons", str(cfg.singletons),
                    "--batch_reads", "8192", "-file_prefix", prefix]
             cmd += (["--stream"] if mode == "stream"
-                    else ["-read_scan_file", fa])
+                    else ["-read_scan_file", src])
+            cmd += ["--paired_ends"] if mode == "paired" else []
             t0 = time.perf_counter()
             r = subprocess.run(cmd, cwd=REPO, capture_output=True,
                                text=True, timeout=600)
@@ -519,22 +811,36 @@ def run_cli():
             for ext in ("fasta", "gfa", "bloom.npz", "junctions.npz"):
                 if not os.path.getsize(f"{prefix}.{ext}"):
                     raise AssertionError(f"cli {mode}: empty {ext}")
+            paired = "p_keys_hi" in np.load(f"{prefix}.junctions.npz")
+            if paired != (mode == "paired"):
+                raise AssertionError(f"cli {mode}: pair table in the "
+                                     f"checkpoint: {paired}")
             contigs = [s for _, s in read_fasta(f"{prefix}.fasta")]
             frac = genome_true_frac(contigs, genome)
+            total = sum(len(c) for c in contigs)
             native = "native C++ reader" in r.stderr
             log(f"{mode}: {len(contigs)} contigs, N50 "
-                f"{n50([len(c) for c in contigs])}, genome-true "
-                f"{frac:.5f}, {time.perf_counter() - t0:.2f} s"
+                f"{n50([len(c) for c in contigs])}, {total} bases, "
+                f"genome-true {frac:.5f}, {time.perf_counter() - t0:.2f} s"
                 f"{' (native reader)' if native else ''}")
             if frac < 0.99:
                 raise AssertionError(f"cli {mode}: genome-true {frac}")
+            got = {"contigs": len(contigs),
+                   "n50": n50([len(c) for c in contigs]), "total": total}
+            if mode != "stream" and total < 0.99 * len(genome):
+                raise AssertionError(f"cli {mode}: {total} bases of "
+                                     f"{len(genome)}")
+            if mode == "paired" and got != CLI_PAIRED_RECORD:
+                raise AssertionError(f"cli paired: {got} != record "
+                                     f"{CLI_PAIRED_RECORD}")
             report["phases"]["cli"][mode] = {
-                "contigs": len(contigs), "genome_true": frac,
+                "contigs": len(contigs), "bases": total, "genome_true": frac,
                 "seconds": time.perf_counter() - t0}
 
 
 @phase("stream")
-def run_stream(n_batches: int = 16, warmup: int = 2, profile: bool = False):
+def run_stream(n_batches: int = 16, warmup: int = 2, groups: int = 5,
+               profile: bool = False):
     import torch
 
     from faucet_tpu_torch import Config, Metrics
@@ -558,21 +864,60 @@ def run_stream(n_batches: int = 16, warmup: int = 2, profile: bool = False):
         b[err] = rng.integers(0, 4, int(err.sum()))
         batches.append((torch.from_numpy(b).cuda(),
                         np.full(B, L, np.int32)))
-    p = Pipeline(cfg, Metrics(), device="cuda")
-    for bases, lens in batches[:warmup]:
-        p.stream_step(bases, lens)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for bases, lens in batches[warmup:]:
-        p.stream_step(bases, lens)
-    p.flush_junctions()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    rate = n_batches * B / dt
-    log(f"{n_batches} batches x {B} reads in {dt:.3f} s: {rate:.0f} "
-        f"reads/s (load+scan, after {warmup} warmup batches)")
-    report["phases"]["stream"].update(reads_per_s=rate, seconds_timed=dt,
-                                      batches=n_batches)
+    from faucet_tpu_torch.kernels import compact as KCP
+
+    kernel = KCP.mask_indices
+
+    def run(compact):
+        """One stream of the batches, upsert rounds compacted by
+        `compact`; returns (reads/s, junction and sink arrays)."""
+        KCP.mask_indices = compact
+        try:
+            p = Pipeline(cfg, Metrics(), device="cuda")
+            for bases, lens in batches[:warmup]:
+                p.stream_step(bases, lens)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for bases, lens in batches[warmup:]:
+                p.stream_step(bases, lens)
+            p.flush_junctions()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            KCP.mask_indices = kernel
+        return (n_batches * B / dt,
+                _table_arrays(p.junctions) + _table_arrays(p.sinks), p)
+
+    # the path, counted: one stream with the compaction kernel
+    zero_counts()
+    rate, tk, p = run(kernel)
+    report["launches_by_path"]["stream"] = read_counts()
+    log(f"{n_batches} batches x {B} reads: {rate:.0f} reads/s (load+scan, "
+        f"after {warmup} warmup batches)")
+    # the upsert rounds' compaction, kernel against its plain version
+    # (same batches, a fresh Pipeline each run) in ABBA order
+    rates = {"kernel": [rate], "plain": []}
+    order = ["plain", "plain", "kernel"] + ["kernel", "plain", "plain",
+                                            "kernel"] * (groups - 1)
+    for name in order:
+        r, tables, _ = run(kernel if name == "kernel"
+                           else KCP.mask_indices_plain)
+        rates[name].append(r)
+        if not all(np.array_equal(x, y) for x, y in zip(tk, tables)):
+            raise AssertionError(f"stream: the {name} compaction's junction "
+                                 "and sink tables differ")
+    pairs = list(zip(rates["kernel"], rates["plain"]))
+    rec = {"batches": n_batches, "reads_per_s": rate, "runs": rates,
+           "kernel_won": sum(k > q for k, q in pairs), "pairs": len(pairs)}
+    for name, xs in rates.items():
+        q1, med, q3 = np.percentile(xs, [25, 50, 75])
+        rec[name] = {"median": med, "q1": q1, "q3": q3}
+        log(f"compaction {name}: {len(xs)} runs, median {med:.0f} reads/s "
+            f"(quartiles {q1:.0f}-{q3:.0f}, range {min(xs):.0f}-"
+            f"{max(xs):.0f})")
+    log(f"stream: identical tables in all {len(order) + 1} runs; the "
+        f"kernel won {rec['kernel_won']} of {len(pairs)} pairs")
+    report["phases"]["stream"].update(rec)
     if profile:
         report["phases"]["stream"]["profiled"] = log_share(
             "4 stream batches", *device_share(
@@ -581,25 +926,40 @@ def run_stream(n_batches: int = 16, warmup: int = 2, profile: bool = False):
 
 def kernel_line(launches):
     k = report.get("kernels", {})
-    probe = k.get("probe_573440", {})
-    casc = (k.get("cascade_dense_4_3") or [{}])[0]
-    errs = [v["max_abs_err"] for key, v in k.items()
-            if key.startswith("probe")]
-    cerrs = [t["max_abs_err"] for key, v in k.items()
-             if key.startswith("cascade") for t in v]
+    by_path = report["launches_by_path"]
+
+    def entry(name, source, replaces, key, rows, ms_row):
+        errs = [r["max_abs_err"] for r in rows]
+        e = {"name": name, "route": "cuda",
+             "source": f"faucet_tpu_torch/csrc/{source}",
+             "replaces": f"faucet_tpu/kernels/{replaces}",
+             "launches": launches.get(key),
+             "launches_from": ("phase 3 entry points (no caller on any "
+                               "path)" if key.startswith("scatter")
+                               else "the paired path (phase 6)"),
+             "max_abs_err": max(errs) if errs else None,
+             "ms": ms_row.get("ms"), "plain_ms": ms_row.get("plain_ms")}
+        if not key.startswith("scatter"):
+            e["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        return e
+
+    def rows(prefix):
+        return [r for key, v in k.items() if key.startswith(prefix)
+                for r in (v if isinstance(v, list) else [v])]
+
     return {"kernels": [
-        {"name": "bloom_probe", "route": "cuda",
-         "source": "faucet_tpu_torch/csrc/probe.cu",
-         "replaces": "faucet_tpu/kernels/probe.py:98",
-         "launches": launches["probe"],
-         "max_abs_err": max(errs) if errs else None,
-         "ms": probe.get("ms"), "plain_ms": probe.get("plain_ms")},
-        {"name": "cascade_insert", "route": "cuda",
-         "source": "faucet_tpu_torch/csrc/cascade.cu",
-         "replaces": "faucet_tpu/kernels/cascade.py:470",
-         "launches": launches["cascade"],
-         "max_abs_err": max(cerrs) if cerrs else None,
-         "ms": casc.get("ms"), "plain_ms": casc.get("plain_ms")}]}
+        entry("bloom_probe", "probe.cu", "probe.py:98", "probe",
+              rows("probe"), k.get("probe_573440", {})),
+        entry("cascade_insert", "cascade.cu", "cascade.py:470", "cascade",
+              rows("cascade"), (k.get("cascade_dense_4_3") or [{}])[0]),
+        entry("scatter_or_keys", "bloom_scatter.cu", "bloom_scatter.py:124",
+              "scatter_or_keys", rows("scatter_keys"),
+              k.get("scatter_keys_A", {})),
+        entry("scatter_or_bits", "bloom_scatter.cu", "bloom_scatter.py:166",
+              "scatter_or_bits", rows("scatter_bits"),
+              k.get("scatter_bits", {})),
+        entry("mask_indices", "compact.cu", "compact.py:56", "compact",
+              rows("compact"), k.get("compact_573440_0.015", {}))]}
 
 
 def main(argv=None) -> int:
@@ -622,20 +982,34 @@ def main(argv=None) -> int:
     if "parity" in want:
         run_parity()
 
-    from faucet_tpu_torch.kernels import cascade as KC
-    from faucet_tpu_torch.kernels import probe as KP
-
-    # the main path's launches: counted from here to the end of phase 7
-    KP.launches = KC.launches = 0
+    # each path's launches: counted from just before it to just after it
+    # (the stream phase reads its own after its first, counted run)
+    by_path = report["launches_by_path"]
     if "scale" in want:
+        zero_counts()
         run_scale(args.profile)
+        by_path["scale"] = read_counts()
+    if "paired" in want:
+        zero_counts()
+        run_paired()
+        by_path["paired"] = read_counts()
     if "cli" in want:
         run_cli()
     if "stream" in want:
         run_stream(profile=args.profile)
-    launches = {"probe": KP.launches, "cascade": KC.launches}
-    log(f"[counters] main-path launches: {launches}")
-    if "counters" in want and not all(launches.values()):
+    log(f"[counters] main-path launches by path: {by_path}")
+    if "counters" in want:
+        for path, counts in by_path.items():
+            if not all(counts.values()):
+                raise AssertionError(f"{path}: a kernel was never launched: "
+                                     f"{counts}")
+    # this slice's path is the paired one; scatter-OR has no caller on
+    # any path: its entry points were driven, and counted, in phase 3
+    launches = dict(by_path.get("paired", {}))
+    launches.update(report.get("entry_launches", {}))
+    log(f"[counters] paired path with the phase-3 entry points: {launches}")
+    if "counters" in want and "kernels" in want and "paired" in want and \
+            not all(launches.values()):
         raise AssertionError(f"a kernel was never launched: {launches}")
 
     import torch

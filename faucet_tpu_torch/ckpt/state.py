@@ -188,22 +188,24 @@ def load_bloom(path: str, cfg: Config, device=None):
 
 
 def save_junctions(path: str, cfg: Config, junctions: T.Table,
-                   sinks: T.Table):
+                   sinks: T.Table, pairs: T.Table = None):
+    """The junction and sink tables, plus the pair table of a paired-end
+    run (`p_`-prefixed, as the reference writes it)."""
+    extra = _table_arrays("p", pairs) if pairs is not None else {}
     np.savez_compressed(
         path, cfg_hash=np.frombuffer(_cfg_hash(cfg).encode(), np.uint8),
         **_table_arrays("j", junctions, (np.int32, np.uint16)),
-        **_table_arrays("s", sinks))
+        **_table_arrays("s", sinks), **extra)
 
 
 def load_junctions(path: str, cfg: Config, device=None):
-    """Returns (junctions, sinks). A pair table (paired-end runs of the
-    reference) is refused: paired ends are not ported."""
+    """Returns (junctions, sinks, pairs-or-None). The pair table rides in
+    the junction checkpoint so a paired-end resume keeps its disentangle
+    evidence."""
     z = np.load(path)
     _check(z, cfg, path)
-    if "p_keys_hi" in z:
-        raise ValueError(f"checkpoint {path} holds a paired-end pair "
-                         "table; paired ends are not ported (ROADMAP.md)")
-    return _table_from("j", z, device), _table_from("s", z, device)
+    pairs = _table_from("p", z, device) if "p_keys_hi" in z else None
+    return _table_from("j", z, device), _table_from("s", z, device), pairs
 
 
 def _check(z, cfg: Config, path: str):

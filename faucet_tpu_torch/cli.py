@@ -44,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume: junction/sink checkpoint")
     p.add_argument("--fastq", action="store_true")
     p.add_argument("--paired_ends", action="store_true",
-                   help="not ported (ROADMAP.md: paired ends)")
+                   help="scan file is interleaved mate pairs; junction "
+                        "pairs feed disentanglement")
     p.add_argument("--no_cleaning", action="store_true")
     p.add_argument("--two_hash", action="store_true")
     # ---- extras ----------------------------------------------------------
@@ -82,8 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(a):
     """(flag, ROADMAP item) for every requested feature not ported."""
     out = []
-    if a.paired_ends:
-        out.append(("--paired_ends", "paired ends"))
     if a.exact:
         out.append(("--exact", "exact mode"))
     if a.junction_detect == "ext8":
@@ -109,8 +108,9 @@ def config_from_args(a) -> Config:
         size_kmer=a.size_kmer, max_read_length=a.max_read_length,
         estimated_kmers=a.estimated_kmers, singletons=a.singletons,
         file_prefix=a.file_prefix, fastq=a.fastq,
-        no_cleaning=a.no_cleaning, bloom_file=a.bloom_file,
-        junctions_file=a.junctions_file, fp_rate=a.fp_rate,
+        paired_ends=a.paired_ends, no_cleaning=a.no_cleaning,
+        bloom_file=a.bloom_file, junctions_file=a.junctions_file,
+        fp_rate=a.fp_rate,
         two_hash=a.two_hash, batch_reads=a.batch_reads,
         metrics_file=a.metrics_file, min_contig_cov=a.min_contig_cov,
         tip_len_factor=a.tip_len_factor, junction_detect=a.junction_detect)
@@ -141,8 +141,10 @@ def main(argv=None) -> int:
         pipe.cascade, node_cascade = CK.load_bloom(cfg.bloom_file, cfg,
                                                    pipe.device)
         pipe.node_cascade = node_cascade
-        pipe.junctions, pipe.sinks = CK.load_junctions(
+        pipe.junctions, pipe.sinks, pairs = CK.load_junctions(
             cfg.junctions_file, cfg, pipe.device)
+        if pairs is not None:
+            pipe.pairs = pairs
         resumed = True
         print(f"[faucet_tpu_torch] resumed from {cfg.bloom_file} + "
               f"{cfg.junctions_file}", file=sys.stderr)
@@ -159,6 +161,10 @@ def main(argv=None) -> int:
         if use_native:
             print("[faucet_tpu_torch] using native C++ reader",
                   file=sys.stderr)
+    if cfg.paired_ends and cfg.batch_reads % 2:
+        print("error: --paired_ends needs an even --batch_reads",
+              file=sys.stderr)
+        return 2
 
     def batches_of(path):
         if use_native:
@@ -179,7 +185,12 @@ def main(argv=None) -> int:
                 print("error: --stream needs -read_load_file",
                       file=sys.stderr)
                 return 2
-            g = pipe.run_streaming_batches(batches_of(cfg.read_load_file))
+            if use_native:
+                g = pipe.run_streaming_batches(
+                    batches_of(cfg.read_load_file))
+            else:
+                g = pipe.run_streaming(read_seqs(cfg.read_load_file,
+                                                 cfg.fastq))
         else:
             if not (cfg.read_load_file and cfg.read_scan_file):
                 print("error: need -read_load_file and -read_scan_file "
@@ -187,11 +198,17 @@ def main(argv=None) -> int:
                       file=sys.stderr)
                 return 2
             pipe.load_batches(batches_of(cfg.read_load_file))
-            pipe.scan_batches(batches_of(cfg.read_scan_file))
+            if not cfg.paired_ends:
+                pipe.scan_batches(batches_of(cfg.read_scan_file))
+            elif use_native:
+                pipe.scan_paired_batches(batches_of(cfg.read_scan_file))
+            else:
+                pipe.scan_paired(read_seqs(cfg.read_scan_file, cfg.fastq))
         CK.save_bloom(f"{cfg.file_prefix}.bloom.npz", cfg, pipe.cascade,
                       pipe.node_cascade)
         CK.save_junctions(f"{cfg.file_prefix}.junctions.npz", cfg,
-                          pipe.junctions, pipe.sinks)
+                          pipe.junctions, pipe.sinks,
+                          pipe.pairs if cfg.paired_ends else None)
         if not args.stream:  # run_streaming built+cleaned already
             g = pipe._finish()
     else:

@@ -4,9 +4,10 @@ Port of faucet_tpu/core/bloom.py, Bloom mode only (the exact-table mode,
 cfg.exact, is not ported: ROADMAP.md). A filter is an int32 word array
 (uint32 bit patterns) of 512-bit blocks; a key's n_hash bits all live in
 one block, bit j = (h1r + (j+1)*h2) & 511, so a probe is one 64-byte
-read. Membership and cascade inserts go through kernels/probe.py and
-kernels/cascade.py, which launch the CUDA kernels for CUDA tensors and
-take their plain torch versions for CPU tensors.
+read. Membership, plain inserts and cascade inserts go through
+kernels/probe.py, kernels/bloom_scatter.py and kernels/cascade.py, which
+launch the CUDA kernels for CUDA tensors and take their plain torch
+versions for CPU tensors.
 
 Within a batch the cascade keeps the reference's sequential semantics by
 counting duplicate keys: a k-mer seen twice in one batch is solid.
@@ -19,6 +20,7 @@ import torch
 
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core.hashing import hash_pair
+from faucet_tpu_torch.kernels import bloom_scatter as SK
 from faucet_tpu_torch.kernels import cascade as CK
 from faucet_tpu_torch.kernels import probe as PK
 
@@ -69,11 +71,14 @@ def _block_and_bits(khi, klo, n_hash: int, log2_bits: int,
 def bloom_insert(b: Bloom, khi, klo, mask, n_hash: int,
                  log2_bits: int, shard_bits: int = 0) -> Bloom:
     """OR all probe bits of the masked keys into the filter (in place).
-    Plain torch on any device: the pipeline inserts only through the
-    cascade kernel, as the reference's does on the TPU."""
+    CUDA tensors launch the scatter-OR kernel (kernels/bloom_scatter.py),
+    CPU tensors take its plain version, as the reference's runs its
+    Pallas kernel off the CPU. The pipeline itself inserts only through
+    the cascade kernel."""
     block, h1r, h2 = _block_h1r_h2(khi.reshape(-1), klo.reshape(-1),
                                    log2_bits, shard_bits)
-    CK.bloom_or_plain(b.words, block, h1r, h2, mask.reshape(-1), n_hash)
+    block = torch.where(mask.reshape(-1), block, SENTINEL)
+    SK.scatter_or_keys(b.words, block, h1r, h2, n_hash)
     return b
 
 

@@ -1,8 +1,9 @@
 """Phase-2 device scan: dense junction detection over read batches.
 
 Port of faucet_tpu/core/scan.py, the branch-node path (junction_detect
-auto/nodes with k <= 31). The 8-way extension probe (ext8), wide k and
-paired-end capture are not ported (ROADMAP.md). Per batch:
+auto/nodes with k <= 31), with paired-end junction-pair capture. The
+8-way extension probe (ext8) and wide k are not ported (ROADMAP.md). Per
+batch:
   1. kmerize -> per-window canonical codes           [B, P]
   2. window solidity in B, two branch-node probes in E per window
   3. segment rows into maximal solid runs (cumulative max/min)
@@ -23,7 +24,9 @@ from faucet_tpu_torch.core import kmer as KM
 from faucet_tpu_torch.core import nodes as ND
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core import u32x2 as u2
+from faucet_tpu_torch.core.hashing import pair_key
 from faucet_tpu_torch.core.slots import entry_slot, exit_slot
+from faucet_tpu_torch.kernels import compact as CP
 
 EMPTY = 0xFFFFFFFF
 I32 = torch.int32
@@ -225,22 +228,37 @@ def cov_dist8(ex_slot, en_slot, ex_dist, en_dist, exit_ok, entry_ok):
     return cov8, dist8
 
 
+def compact_rounds(mask, K: int, rounds: int, payloads, fn, state,
+                   compact):
+    """The round loop of upsert_rounds: each round takes the first
+    min(count, K) remaining lanes that `compact(mask, K)` (the
+    kernels/compact.py mask_indices contract) returns, folds them, and
+    clears them before the next round. Round contents equal the
+    reference's stable-argsort rounds: both take live lanes K at a time
+    in lane order."""
+    n = mask.shape[0]
+    m = torch.cat([mask, mask.new_zeros(1)])  # lane n absorbs the clears
+    slot = torch.arange(K, device=mask.device)
+    for _ in range(rounds):
+        idx, cnt = compact(m[:n], K)
+        cm = slot < torch.clamp(cnt, max=K)
+        take = torch.where(cm, idx, 0)
+        state = fn(state, cm, tuple(p[take] for p in payloads))
+        m[torch.where(cm, take, n)] = False
+    return state
+
+
 def upsert_rounds(mask, K: int, payloads, fn, state):
     """Fold every True lane of a sparse update grid into `state`, K
-    compacted lanes per round, keeping lane order (stable argsort). The
-    round count is fetched to the host (one sync)."""
-    n = mask.shape[0]
+    compacted lanes per round, keeping lane order. The round count is
+    fetched to the host (one sync). Each round's lanes come from the
+    stream-compaction kernel (kernels/compact.py mask_indices; its plain
+    version on CPU tensors)."""
     total = int(mask.sum())
     if total == 0:
         return state, total
-    order = _compact_order(mask, K, total)
-    maskp = torch.cat([mask, mask.new_zeros(1)])
-    for r in range(order.shape[0] // K):
-        take = order[r * K:(r + 1) * K]
-        cm = maskp[take]
-        take = torch.clamp(take, max=n - 1)
-        state = fn(state, cm, tuple(p[take] for p in payloads))
-    return state, total
+    return compact_rounds(mask, K, -(-total // K), payloads, fn, state,
+                          CP.mask_indices), total
 
 
 def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
@@ -344,6 +362,72 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
         sink_pos=sink_pos, sink_cov=sink_cov, key_hi=key_hi, key_lo=key_lo,
         jm=is_junc, canon_hi=key_hi, canon_lo=key_lo,
         n_solid=solid.sum(), n_junc_pos=is_junc.sum())
+
+
+J_CHUNK = 32  # junction lanes per pair-capture tile side (not a cap: tiles
+#   iterate until every distinct junction of every mate is covered)
+_EMPTY_KEY = (1 << 63) - 1  # u2.sort_key(EMPTY, EMPTY): sorts last
+
+
+def _row_junctions(jm, chi, clo):
+    """All distinct junction canon codes per row, compacted to the front.
+
+    Returns (hi, lo, valid, count): hi/lo/valid [B, P] with the valid
+    lanes contiguous from column 0, count [B] distinct junctions per row.
+    The reference's 2-key sort along rows is one row-wise sort of the
+    packed key (u2.sort_key keeps the unsigned order, EMPTY last)."""
+    B = jm.shape[0]
+    key, _ = torch.sort(torch.where(jm, u2.sort_key(chi, clo), _EMPTY_KEY),
+                        dim=1)
+    first = torch.ones_like(jm)
+    first[:, 1:] = key[:, 1:] != key[:, :-1]
+    valid = first & (key != _EMPTY_KEY)
+    order = torch.sort((~valid).to(torch.uint8), dim=1, stable=True).indices
+    hi, lo = u2.from_sort_key(torch.gather(key, 1, order))
+    return hi, lo, torch.gather(valid, 1, order), valid.sum(dim=1)
+
+
+def capture_pairs(pairs: T.Table, res1: ScanResult, res2: ScanResult,
+                  cfg=None) -> T.Table:
+    """Record junction co-occurrences across mate pairs (port of the
+    reference's capture_pairs; lossless).
+
+    res1/res2 are the ScanResults of the two mate batches (row-aligned).
+    Each row's distinct junction sets are crossed in J_CHUNK x J_CHUNK
+    tiles, keyed by the order-independent pair hash and counted in the
+    pair table (in place). The reference's device loop over the tiles is
+    a host loop: one sync fetches both mates' densest row counts."""
+    ahi, alo, av, na = _row_junctions(res1.jm, res1.canon_hi,
+                                      res1.canon_lo)
+    bhi, blo, bv, nb = _row_junctions(res2.jm, res2.canon_hi,
+                                      res2.canon_lo)
+    J = J_CHUNK
+
+    def padJ(x, fill):
+        padn = (-x.shape[1]) % J
+        if not padn:
+            return x
+        return torch.cat([x, torch.full((x.shape[0], padn), fill,
+                                        dtype=x.dtype, device=x.device)],
+                         dim=1)
+
+    ahi, alo, av = padJ(ahi, EMPTY), padJ(alo, EMPTY), padJ(av, False)
+    bhi, blo, bv = padJ(bhi, EMPTY), padJ(blo, EMPTY), padJ(bv, False)
+    max_a, max_b = torch.stack([na.max(), nb.max()]).tolist()
+    ra, rb = -(-max_a // J), -(-max_b // J)
+    shard_bits = 0 if cfg is None else cfg.shard_bits
+    sl = lambda x, t: x[:, t * J:(t + 1) * J]
+    for i in range(ra * rb):
+        ta, tb = divmod(i, rb)
+        khi, klo = pair_key(sl(ahi, ta)[:, :, None], sl(alo, ta)[:, :, None],
+                            sl(bhi, tb)[:, None, :], sl(blo, tb)[:, None, :])
+        mask = sl(av, ta)[:, :, None] & sl(bv, tb)[:, None, :]
+        n = khi.numel()
+        pairs = T.upsert(pairs, khi.reshape(n), klo.reshape(n),
+                         (torch.ones((n,), dtype=I32, device=khi.device),),
+                         mask.reshape(n), modes=("add",),
+                         shard_bits=shard_bits)
+    return pairs
 
 
 def load_batch(cascade: BL.Cascade, bases, lens, cfg) -> BL.Cascade:

@@ -120,6 +120,11 @@ def sort_key(hi, lo):
     return pack(hi, lo) ^ _SIGN
 
 
+def from_sort_key(v):
+    """Inverse of sort_key: the (hi, lo) pair."""
+    return unpack(v ^ _SIGN)
+
+
 # ---- host-side helpers (numpy / python int) ----------------------------
 
 def to_int(hi, lo):

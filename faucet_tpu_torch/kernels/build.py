@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (faucet_tpu_torch/csrc/*.cu).
 
-At first use, nvcc compiles the sources for Hopper (sm_90a) into one
+At first use, nvcc compiles the sources for Hopper (sm_90a), one nvcc
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads. The library
 lands in faucet_tpu_torch/_build/ (git-ignored) under a name carrying a
 hash of the sources and flags, so an edit to any source rebuilds it and
@@ -20,10 +21,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("probe.cu", "cascade.cu")
+SOURCES = ("probe.cu", "cascade.cu", "bloom_scatter.cu", "compact.cu")
 HEADERS = ("bloom_bits.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 # set by the build that produced the loaded library (None when it was
@@ -57,15 +58,33 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
+                               "-o", str(o), str(CSRC / s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for s, p in zip(SOURCES, procs):
+        logs.append(f"== {s}\n{p.communicate()[0]}")
+        if p.returncode:
+            failed.append(s)
+    if not failed:
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        logs.append(f"== link\n{r.stdout}{r.stderr}")
+        if r.returncode:
+            failed.append("link")
+    for o in objs:
+        o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           f"{build_log}")
     os.replace(tmp, so)
     return so
 
@@ -81,6 +100,14 @@ def library() -> ctypes.CDLL:
         lib.ft_cascade_apply.restype = i32
         lib.ft_cascade_apply.argtypes = [p, i64, p, i64, p, p, p, p, p, p,
                                          p, p, p, p, i64, i32, i32, p]
+        lib.ft_scatter_or_keys.restype = i32
+        lib.ft_scatter_or_keys.argtypes = [p, i64, p, p, p, i64, i32, p]
+        lib.ft_scatter_or_bits.restype = i32
+        lib.ft_scatter_or_bits.argtypes = [p, i64, p, i64, p]
+        lib.ft_mask_indices.restype = i32
+        lib.ft_mask_indices.argtypes = [p, i64, p, i64, p, p, p]
+        lib.ft_mask_indices_chunk.restype = i64
+        lib.ft_mask_indices_chunk.argtypes = []
         lib.ft_error_string.restype = ctypes.c_char_p
         lib.ft_error_string.argtypes = [i32]
         _lib = lib

@@ -28,6 +28,7 @@ import torch
 from faucet_tpu_torch.core import u32x2 as u2
 from faucet_tpu_torch.kernels import build as KB
 from faucet_tpu_torch.kernels import probe as PK
+from faucet_tpu_torch.kernels.bloom_scatter import bloom_or_plain
 
 SENTINEL = 0xFFFFFFFF
 _KEY_LAST = (1 << 63) - 1  # sort key of masked lanes: after every key
@@ -57,19 +58,6 @@ def _sorted_batch(khi, klo, block_a, block_b, h1r, h2, probe):
     in_a, in_b = probe(torch.where(rep, ba, SENTINEL),
                        torch.where(rep, bb, SENTINEL), r1, r2)
     return ba, bb, r1, r2, sidx, seg_start, in_a, in_b
-
-
-def bloom_or_plain(words, block, h1r, h2, mask, n_hash: int):
-    """OR the n_hash bits of every masked key into `words`, in place.
-
-    torch has no scatter-OR: distinct bit positions are summed per word
-    (a sum of distinct bits is their OR), then OR-ed in once per word."""
-    j = torch.arange(1, n_hash + 1, device=block.device, dtype=torch.int64)
-    bits = (h1r[:, None] + j * h2[:, None]) & 511
-    pos = torch.unique(((block[:, None] << 9) | bits)[mask])
-    delta = torch.zeros(words.shape, dtype=torch.int64, device=words.device)
-    delta.index_add_(0, pos >> 5, 1 << (pos & 31))
-    words |= u2.to_i32(delta)
 
 
 def cascade_insert_plain(a_words, b_words, khi, klo, block_a, block_b, h1r,

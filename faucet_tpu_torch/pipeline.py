@@ -6,8 +6,8 @@ is extracted to the host for cleaning and emission. `run_file_mode`
 makes two passes over the reads, `run_streaming` one (insert, then scan,
 each batch). Reads are consumed batch by batch and never stored.
 
-Ported scope: one device, k <= 31, Bloom mode, branch-node junctions.
-Paired ends, exact mode, ext8, wide k, sharding and prune_slots raise
+Ported scope: one device, k <= 31, Bloom mode, branch-node junctions,
+paired ends. Exact mode, ext8, wide k, sharding and prune_slots raise
 NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -46,7 +46,6 @@ def batch_iter(reads: Iterable[str], cfg: Config
 def check_supported(cfg: Config):
     """Refuse configurations whose features are not ported yet."""
     unported = [
-        (cfg.paired_ends, "paired ends"),
         (cfg.exact, "exact mode"),
         (cfg.size_kmer > 31, "wide k (k > 31)"),
         (not cfg.use_node_junctions, "ext8 junction detection"),
@@ -85,6 +84,7 @@ class Pipeline:
             cfg.junction_cap, (((8,), torch.int32), ((8,), torch.int32)),
             device=dev)
         self.sinks = T.make(cfg.sink_cap, (((), torch.int32),), device=dev)
+        self.pairs = T.make(cfg.pair_cap, (((), torch.int32),), device=dev)
         # cross-batch junction-update spool: scan batches append; phase
         # ends flush (core/scan.JSpool)
         self.jspool = (SC.make_jspool(cfg, dev) if cfg.spool_junctions
@@ -172,6 +172,63 @@ class Pipeline:
         self.metrics.add("reads_loaded", int((np.asarray(lens) > 0).sum()))
         return self.scan_batch(bases, lens, window_solid=ws)
 
+    def scan_paired(self, reads: Iterable[str]):
+        """Scan an interleaved mate stream; captures junction pairs for
+        disentanglement alongside the normal junction updates."""
+        m = self.metrics
+        m.start("scan")
+        for packed in self._mate_batches(reads):
+            self._scan_pair_packed(*packed)
+        self.flush_junctions()
+        self._sync()
+        m.stop("scan")
+
+    def _mate_batches(self, reads: Iterable[str]):
+        """Interleaved mates -> packed (bases1, lens1, bases2, lens2), up
+        to batch_reads pairs each (the last batch padded)."""
+        from faucet_tpu.io.fastq import deinterleave
+
+        B, L = self.cfg.batch_reads, self.cfg.max_read_length
+        m1, m2 = [], []
+        for a, b in deinterleave(iter(reads)):
+            m1.append(a)
+            m2.append(b)
+            if len(m1) == B:
+                yield pack_reads(m1, L) + pack_reads(m2, L)
+                m1, m2 = [], []
+        if m1:
+            pad = [""] * (B - len(m1))
+            yield pack_reads(m1 + pad, L) + pack_reads(m2 + pad, L)
+
+    def _scan_pair_packed(self, b1, l1, b2, l2):
+        r1 = self.scan_batch(b1, l1)
+        r2 = self.scan_batch(b2, l2)
+        self.pairs = SC.capture_pairs(self.pairs, r1, r2, cfg=self.cfg)
+        self.metrics.add("pair_batches", 1)
+
+    def scan_paired_batches(self, batches):
+        """Paired scan over packed interleaved batches (the native C++
+        reader feeds this): mates are alternating rows, split even/odd.
+        Row counts must be even."""
+        from faucet_tpu_torch.io.stream import prefetch_batches
+
+        m = self.metrics
+        m.start("scan")
+        for bases, lens in prefetch_batches(batches, self.device):
+            self._scan_pair_packed(bases[0::2], lens[0::2], bases[1::2],
+                                   lens[1::2])
+        self.flush_junctions()
+        self._sync()
+        m.stop("scan")
+
+    def pair_counts(self):
+        """Host dict: pair-hash key -> count (consumed by disentangle)."""
+        from faucet_tpu_torch.graph.build import extract_table
+
+        t = extract_table(self.pairs)
+        return {(int(h) << 32) | int(l): int(c)
+                for h, l, c in zip(t["hi"], t["lo"], t["v0"])}
+
     # ---- phases 3-5 ------------------------------------------------------
     def build(self) -> ContigGraph:
         m = self.metrics
@@ -189,6 +246,23 @@ class Pipeline:
         m.add("contigs_raw", len(g.live()))
         return g
 
+    def _pair_count_fn(self):
+        """Host pair-evidence lookup over node k-mer strings, or None."""
+        counts = self.pair_counts()
+        if not counts:
+            return None
+        from faucet_tpu_torch.core.hashing import pair_key_np
+        from faucet_tpu_torch.core.kmer import encode_kmer
+
+        def pc(a: str, b: str) -> int:
+            ah, al = encode_kmer(a)
+            bh, bl = encode_kmer(b)
+            kh, kl = pair_key_np(np.uint32(ah), np.uint32(al),
+                                 np.uint32(bh), np.uint32(bl))
+            return counts.get((int(kh) << 32) | int(kl), 0)
+
+        return pc
+
     def clean_graph(self, g: ContigGraph) -> ContigGraph:
         cfg = self.cfg
         if cfg.no_cleaning:
@@ -197,7 +271,9 @@ class Pipeline:
         m.start("clean")
         st = clean(g,
                    max_tip_len=int(cfg.tip_len_factor * cfg.max_read_length),
-                   min_cov=cfg.min_contig_cov, pair_count=None)
+                   min_cov=cfg.min_contig_cov,
+                   pair_count=(self._pair_count_fn()
+                               if cfg.paired_ends else None))
         m.stop("clean")
         for k, v in st.items():
             m.add(f"clean_{k}", v)
@@ -218,17 +294,39 @@ class Pipeline:
         return self._finish()
 
     def run_streaming(self, reads: Iterable[str]) -> ContigGraph:
-        """Single-pass stream: each batch is inserted, then scanned."""
-        return self.run_streaming_batches(batch_iter(reads, self.cfg))
+        """Single-pass stream: each batch is inserted, then scanned. With
+        paired_ends the stream is interleaved mates: both mate batches
+        (batch_reads each) are inserted, then pair-scanned."""
+        if not self.cfg.paired_ends:
+            return self.run_streaming_batches(batch_iter(reads, self.cfg))
+        m = self.metrics
+        m.start("stream")
+        for packed in self._mate_batches(reads):
+            self._stream_pair_packed(*packed)
+        self.flush_junctions()
+        self._sync()
+        m.stop("stream")
+        return self._finish()
+
+    def _stream_pair_packed(self, b1, l1, b2, l2):
+        self.load_batch(b1, l1)
+        self.load_batch(b2, l2)
+        self._scan_pair_packed(b1, l1, b2, l2)
 
     def run_streaming_batches(self, batches) -> ContigGraph:
-        """Single-pass stream over packed (bases, lens) batches."""
+        """Single-pass stream over packed (bases, lens) batches; with
+        paired_ends, mates are the alternating rows of each batch (load
+        both halves, then pair-scan)."""
         from faucet_tpu_torch.io.stream import prefetch_batches
 
         m = self.metrics
         m.start("stream")
         for bases, lens in prefetch_batches(batches, self.device):
-            self.stream_step(bases, lens)
+            if self.cfg.paired_ends:
+                self._stream_pair_packed(bases[0::2], lens[0::2],
+                                         bases[1::2], lens[1::2])
+            else:
+                self.stream_step(bases, lens)
         self.flush_junctions()
         self._sync()
         m.stop("stream")

@@ -1,4 +1,5 @@
-"""faucet_tpu_torch kernel modules (probe, cascade) vs the reference.
+"""faucet_tpu_torch kernel modules (probe, cascade, bloom_scatter, compact)
+vs the reference.
 
 On the CPU the wrappers take their plain torch versions; those are held
 to the reference's CPU formulation (core/bloom.py) exactly, and to the
@@ -20,7 +21,9 @@ from faucet_tpu.config import Config
 from faucet_tpu_torch.ckpt import state as CK
 from faucet_tpu_torch.core import bloom as TBL
 from faucet_tpu_torch.core import u32x2 as TU
+from faucet_tpu_torch.kernels import bloom_scatter as KS
 from faucet_tpu_torch.kernels import cascade as KC
+from faucet_tpu_torch.kernels import compact as KCP
 from faucet_tpu_torch.kernels import probe as KP
 
 # the suite runs in several worker processes on few cores: one torch
@@ -38,12 +41,14 @@ def ref():
     import jax.numpy as jnp
 
     from faucet_tpu.core import bloom
+    from faucet_tpu.kernels import bloom_scatter, compact
     from faucet_tpu.kernels.cascade import cascade_insert_fused
     from faucet_tpu.kernels.probe import bloom_probe_keys
 
     return types.SimpleNamespace(jnp=jnp, BL=bloom,
                                  fused=cascade_insert_fused,
-                                 probe=bloom_probe_keys)
+                                 probe=bloom_probe_keys, scatter=bloom_scatter,
+                                 compact=compact)
 
 
 @pytest.fixture
@@ -198,17 +203,92 @@ def test_cascade_plain_vs_tpu_kernel(ref, rng, la, lb, n, dup):
     assert (sk & ~st).mean() < 0.03
 
 
+def _launches():
+    return (KP.launches, KC.launches, KS.launches_keys, KS.launches_bits,
+            KCP.launches)
+
+
 def test_wrappers_take_plain_version_on_cpu():
     w = torch.zeros(32, dtype=torch.int32)
     k = torch.zeros(4, dtype=torch.int64)
     # CPU tensors take the plain version and count no launch; the CUDA
-    # wrapper's checks are exercised on the card (test_kernels_on_card)
-    before = (KP.launches, KC.launches)
+    # wrappers' checks are exercised on the card (the cuda tests below)
+    before = _launches()
     assert KP.bloom_probe_keys(w, k + SENT, k, k, 3).sum() == 0
     new_b, solid = KC.cascade_insert(w.clone(), w.clone(), k, k, k + SENT,
                                      k, k, k, 3, 3)
     assert not new_b.any() and not solid.any()
-    assert (KP.launches, KC.launches) == before
+    assert int(KS.scatter_or_keys(w.clone(), k + SENT, k, k, 3).abs().sum()) \
+        == 0
+    assert int(KS.scatter_or_bits(w.clone(), k + SENT).abs().sum()) == 0
+    idx, cnt = KCP.mask_indices(torch.zeros(4, dtype=torch.bool), 2)
+    assert idx.shape == (2,) and int(cnt) == 0
+    assert _launches() == before
+
+
+def _filter(rng, W):
+    """A filter with some bits already set (OR must keep them)."""
+    w = rng.integers(0, 1 << 32, W, dtype=np.uint64).astype(np.uint32)
+    return w & np.uint32(0x01010101)
+
+
+@pytest.mark.parametrize("n_hash", [3, 4, 16])
+def test_scatter_or_keys_plain_vs_tpu_kernel(ref, rng, n_hash):
+    """B5 plain version vs the Pallas kernel (interpret mode, two filter
+    tiles, four key chunks): words equal bit for bit; SENTINEL blocks are
+    skipped."""
+    W, n = 1 << 14, 2048
+    words = _filter(rng, W)
+    block = rng.integers(0, W // 16, n).astype(np.uint32)
+    block[::7] = SENT
+    block[1::5] = block[2::5][: len(block[1::5])]  # shared blocks
+    h1r = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    h2 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32) | 1
+    jnp = ref.jnp
+    want = np.asarray(ref.scatter.scatter_or_keys(
+        jnp.asarray(words), jnp.asarray(block), jnp.asarray(h1r),
+        jnp.asarray(h2), n_hash, tile_words=W // 2, key_chunk=512,
+        interpret=True))
+    got = KS.scatter_or_keys(CK.words_from_numpy(words), TU.u32(block),
+                             TU.u32(h1r), TU.u32(h2), n_hash)
+    np.testing.assert_array_equal(CK.words_to_numpy(got), want)
+    assert (want != words).any()
+
+
+def test_scatter_or_bits_plain_vs_tpu_kernel(ref, rng):
+    """B6 plain version vs the Pallas kernel (interpret mode, two tiles):
+    SENTINEL and out-of-filter positions skipped, duplicates OR once."""
+    W, n = 1 << 14, 2048
+    words = _filter(rng, W)
+    pos = rng.integers(0, W * 32, n).astype(np.uint32)
+    pos[::5] = SENT
+    pos[1::9] = rng.integers(W * 32, SENT, len(pos[1::9])).astype(np.uint32)
+    pos[2::11] = pos[3::11][: len(pos[2::11])]
+    jnp = ref.jnp
+    want = np.asarray(ref.scatter.scatter_or_bits(
+        jnp.asarray(words), jnp.asarray(pos), tile_words=W // 2,
+        pos_chunk=512, interpret=True))
+    got = KS.scatter_or_bits(CK.words_from_numpy(words), TU.u32(pos))
+    np.testing.assert_array_equal(CK.words_to_numpy(got), want)
+    assert (want != words).any()
+
+
+@pytest.mark.parametrize("density,cap", [(0.0, 256), (0.015, 256),
+                                         (0.5, 2048), (0.5, 256)])
+def test_mask_indices_plain_vs_tpu_kernel(ref, rng, density, cap):
+    """B7 plain version vs the Pallas kernel (interpret mode): the first
+    min(count, cap) indices and the total count equal; (0.5, 256) has
+    count > cap."""
+    mask = rng.random(2048) < density
+    idx, cnt = ref.compact.mask_indices(ref.jnp.asarray(mask), cap,
+                                        interpret=True)
+    cnt = int(cnt)
+    got, gcnt = KCP.mask_indices(torch.from_numpy(mask), cap)
+    assert int(gcnt) == cnt == int(mask.sum())
+    m = min(cnt, cap)
+    np.testing.assert_array_equal(got.numpy()[:m],
+                                  np.asarray(idx)[:m].astype(np.int64))
+    assert got.shape == (cap,) and got.dtype == torch.int64
 
 
 # ---- on the card -----------------------------------------------------------
@@ -250,3 +330,93 @@ def test_kernels_on_card(cuda, n_hash_a):
     with pytest.raises(ValueError):
         KP.bloom_probe_keys(cg.b_bloom.words, TU.u32(qhi).to(cuda).int(),
                             TU.u32(qhi).to(cuda), TU.u32(qhi).to(cuda), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log2_bits,n_hash", [(22, 3), (24, 4)])
+def test_scatter_kernels_on_card(cuda, log2_bits, n_hash):
+    """B5 and B6 == their plain versions bit for bit on the card, at the
+    main path's filter sizes (B 4 MB / A 16 MB), and bloom_insert on CUDA
+    == on the CPU."""
+    rng = np.random.default_rng(99)
+    W, n = 1 << (log2_bits - 5), 573_440
+    words = CK.words_from_numpy(_filter(rng, W), cuda)
+    block = TU.u32(rng.integers(0, W // 16, n), cuda)
+    block[::9] = SENT
+    h1r = TU.u32(rng.integers(0, 1 << 32, n, dtype=np.uint64), cuda)
+    h2 = TU.u32(rng.integers(0, 1 << 32, n, dtype=np.uint64) | 1, cuda)
+    before = KS.launches_keys
+    got = KS.scatter_or_keys(words.clone(), block, h1r, h2, n_hash)
+    want = KS.scatter_or_keys_plain(words.clone(), block, h1r, h2, n_hash)
+    torch.cuda.synchronize()
+    assert KS.launches_keys == before + 1
+    assert torch.equal(got, want)
+    pos = TU.u32(rng.integers(0, W * 32, 4 * n), cuda)
+    pos[::7] = SENT
+    before = KS.launches_bits
+    got = KS.scatter_or_bits(words.clone(), pos)
+    want = KS.scatter_or_bits_plain(words.clone(), pos)
+    torch.cuda.synchronize()
+    assert KS.launches_bits == before + 1
+    assert torch.equal(got, want)
+    hi, lo = _keys(rng, n)
+    mask = rng.random(n) < 0.9
+    bg, bc = TBL.make_bloom(log2_bits, cuda), TBL.make_bloom(log2_bits)
+    TBL.bloom_insert(bg, TU.u32(hi, cuda), TU.u32(lo, cuda),
+                     torch.from_numpy(mask).to(cuda), n_hash, log2_bits)
+    TBL.bloom_insert(bc, TU.u32(hi), TU.u32(lo), torch.from_numpy(mask),
+                     n_hash, log2_bits)
+    assert torch.equal(bg.words.cpu(), bc.words)
+    with pytest.raises(ValueError):
+        KS.scatter_or_keys(words, block.int(), h1r, h2, n_hash)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 573_440, 1_048_576])
+@pytest.mark.parametrize("density", [0.0, 0.015, 0.3, 1.0])
+def test_mask_indices_on_card(cuda, n, density):
+    """B7 == its plain version on the card: the first min(count, cap)
+    indices and the count; counts above cap included."""
+    rng = np.random.default_rng(n + int(density * 1000))
+    mask = torch.from_numpy(rng.random(n) < density).to(cuda)
+    before = KCP.launches
+    idx, cnt = KCP.mask_indices(mask, 8192)
+    pidx, pcnt = KCP.mask_indices_plain(mask, 8192)
+    torch.cuda.synchronize()
+    assert KCP.launches == before + 1
+    assert int(cnt) == int(pcnt) == int(mask.sum())
+    m = min(int(cnt), 8192)
+    assert torch.equal(idx[:m], pidx[:m])
+
+
+@pytest.mark.cuda
+def test_upsert_rounds_kernel_branch_on_card(cuda):
+    """upsert_rounds on the card (one compaction launch per round) folds
+    into the same table as on the CPU (plain compaction), over several
+    rounds."""
+    from faucet_tpu_torch.core import scan as TSC
+    from faucet_tpu_torch.core import table as TT
+
+    rng = np.random.default_rng(5)
+    n = 573_440
+    mask = torch.from_numpy(rng.random(n) < 0.03)
+    hi = TU.u32(rng.integers(0, 1 << 30, n))
+    lo = TU.u32(rng.integers(0, 1 << 32, n, dtype=np.uint64))
+    val = torch.ones((n,), dtype=torch.int32)
+
+    def fn(tbl, cm, ps):
+        return TT.upsert(tbl, ps[0], ps[1], (ps[2],), cm, modes=("add",))
+
+    tables = []
+    for dev in ("cpu", cuda):
+        before = KCP.launches
+        t, total = TSC.upsert_rounds(
+            mask.to(dev), 8192, tuple(x.to(dev) for x in (hi, lo, val)), fn,
+            TT.make(1 << 16, (((), torch.int32),), device=dev))
+        rounds = KCP.launches - before
+        assert rounds == (0 if dev == "cpu" else -(-total // 8192))
+        tables.append(CK.table_to_numpy(t))
+    a, b = tables
+    for f in ("keys_hi", "keys_lo", "count", "dropped"):
+        np.testing.assert_array_equal(a[f], b[f])
+    np.testing.assert_array_equal(a["vals"][0], b["vals"][0])

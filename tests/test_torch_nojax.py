@@ -47,6 +47,35 @@ cfg = Config(size_kmer=21, max_read_length=80, batch_reads=128,
              junction_capacity=1 << 10, sink_capacity=1 << 12)
 g = Pipeline(cfg, device="cpu").run_file_mode(reads, reads)
 assert len(g.live()) >= 1
+
+# the paired path: two-pass and single-pass, pairs captured and used
+# (chip_smoke's phased repeat: mates span junctions on both sides)
+import dataclasses
+mates = sys.modules["chip_smoke"].phased_case()[0]
+pcfg = dataclasses.replace(cfg, paired_ends=True, pair_capacity=1 << 12,
+                           estimated_kmers=1 << 15, singletons=1 << 15)
+p = Pipeline(pcfg, device="cpu")
+p.load_reads(mates)
+p.scan_paired(mates)
+assert len(p.clean_graph(p.build()).live()) >= 1
+assert int(p.pairs.count) > 0 and p.pair_counts()
+assert len(Pipeline(pcfg, device="cpu").run_streaming(mates).live()) >= 1
+
+# the new kernel modules' plain versions
+from faucet_tpu_torch.core import scan as SC
+from faucet_tpu_torch.kernels import bloom_scatter as KS
+from faucet_tpu_torch.kernels import compact as KCP
+w = torch.zeros(64, dtype=torch.int32)
+ks = torch.tensor([0, 3, 0xFFFFFFFF])
+assert KS.scatter_or_keys(w, ks, ks + 5, ks | 1, 3).any()
+assert KS.scatter_or_bits(w.clone().zero_(), ks).sum() != 0
+mask = torch.arange(50) % 3 == 0
+idx, cnt = KCP.mask_indices(mask, 8)
+assert int(cnt) == 17 and idx.tolist() == list(range(0, 24, 3))
+state = SC.compact_rounds(mask, 8, 3, (torch.arange(50),),
+                          lambda s, cm, ps: s + ps[0][cm].sum(), 0,
+                          KCP.mask_indices_plain)
+assert int(state) == int(torch.arange(50)[mask].sum())
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
 print("OK", len(names))
 '''

@@ -68,12 +68,14 @@ def _args(tmp, prefix, *extra):
     return ["-read_load_file", str(tmp / "reads.fa"), "-size_kmer", str(K),
             "-max_read_length", "100", "-estimated_kmers", str(1 << 15),
             "-singletons", str(1 << 15), "--batch_reads", "256",
-            "-file_prefix", str(tmp / prefix), *extra]
+            "--no_native", "-file_prefix", str(tmp / prefix), *extra]
 
 
 @pytest.fixture(scope="module")
 def cli_runs(repeat_case, tmp_path_factory):
-    """Both CLIs, two-pass and --stream, on the same FASTA."""
+    """Both CLIs, two-pass and --stream, on the same FASTA. --no_native
+    keeps the test off the native reader, whose library is rebuilt on
+    first use (smoke phase 6 drives it on the card)."""
     tmp = tmp_path_factory.mktemp("cli")
     simulate.write_fasta(str(tmp / "reads.fa"), repeat_case[1])
     scan = ["-read_scan_file", str(tmp / "reads.fa")]
@@ -114,7 +116,7 @@ def test_checkpoint_resumes_in_the_other_package(cli_runs, writer):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--paired_ends"], ["--exact"], ["--junction_detect", "ext8"],
+    ["--exact"], ["--junction_detect", "ext8"],
     ["-size_kmer", "33"], ["--n_shards", "2"], ["-second_kmer", "25"],
     ["--coordinator", "localhost:1234"], ["--profile"],
 ])
