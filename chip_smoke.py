@@ -9,8 +9,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   2 build     nvcc builds the CUDA kernels from faucet_tpu_torch/csrc
   3 kernels   each kernel against its plain torch version on the same
               CUDA inputs at the main path's shapes: bit-identical, with
-              median times (CUDA events); the scatter-OR kernels' entry
-              points (no caller on the main path) driven and counted
+              median times (CUDA events) of the wrapper, the kernel alone
+              and the plain version, the bound from the shapes and the
+              share of it achieved; the scatter-OR kernels' entry points
+              (no caller on the main path) driven and counted; beside B7,
+              torch.nonzero_static as a yardstick
   4 parity    the port's Pipeline on ~50 kbp of repeat-genome reads, once
               on the CPU (plain versions) and once on CUDA (kernels):
               identical contigs, junction and sink tables
@@ -33,11 +36,13 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               its plain version: identical tables, medians and quartiles
   9 counters  every main-path kernel launched in each of the scale,
               paired and stream paths (counts set to 0 just before each
-              path and read just after it)
+              path and read just after it); device launches of one
+              membership query (must be 1) and one cascade insert (at
+              most 3), from torch.profiler after the timed phases
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json. Imports nothing of JAX.
+chiprun_out/chip_smoke.json. Imports nothing of JAX, nor of faucet_tpu.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+ROOT = REPO  # where faucet_tpu_torch is imported from (--root)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 PHASES = ("device", "build", "kernels", "parity", "scale", "paired", "cli",
           "stream", "counters")
@@ -169,8 +175,8 @@ def launch_loop_ms(launch, reps: int = 50) -> float:
 
 def device_share(fn):
     """Run fn under torch.profiler. Returns (wall s, summed kernel time s,
-    top kernels [(us, name, count)]); one stream, so kernels never
-    overlap and their sum is the device's busy time."""
+    top kernels [(us, name, count)], device launches); one stream, so
+    kernels never overlap and their sum is the device's busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -189,16 +195,19 @@ def device_share(fn):
                   or getattr(e, "self_cuda_time_total", 0))
             rows.append((us, e.key[:60], e.count))
     rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows) / 1e6, rows[:8]
+    return (wall, sum(r[0] for r in rows) / 1e6, rows[:8],
+            sum(r[2] for r in rows))
 
 
-def log_share(tag, wall, dev, top):
+def log_share(tag, wall, dev, top, n_launches):
     rec = {"wall_s": wall, "device_s": dev,
            "busy_share": dev / wall if wall else None,
+           "device_launches": n_launches,
            "top_kernels": [list(r) for r in top]}
     if dev:
-        log(f"{tag} under the profiler: wall {wall:.3f} s, kernels "
-            f"{dev:.3f} s, device busy {dev / wall:.3f}")
+        log(f"{tag} under the profiler: wall {wall:.4f} s, kernels "
+            f"{dev:.4f} s (host and idle {wall - dev:.4f} s), device busy "
+            f"{dev / wall:.3f}, {n_launches} device launches")
         for us, name, cnt in top:
             log(f"    {us / 1e3:9.2f} ms  x{cnt:<6} {name}")
     else:
@@ -284,13 +293,56 @@ def _rand_keys(gen, n, dev):
     return hi, lo
 
 
+# the least time the card could take (NVIDIA H100 SXM data sheet, at the
+# 700 W limit): bytes over the HBM rate, or operations over the peak for
+# their type; these kernels do integer work, counted at the non-tensor
+# 32-bit rate (67 T/s)
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, nops: float = 0.0) -> dict:
+    """{"bound_ms", "bound_by", "bound_bytes", "bound_ops"} of the larger
+    of the two lower bounds."""
+    tb, to = nbytes / HBM_BYTES_PER_S, nops / ALU_OPS_PER_S
+    return {"bound_ms": 1e3 * max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(nops)}
+
+
+def n_unique(t) -> int:
+    import torch
+
+    return int(torch.unique(t).numel())
+
+
+# integer instructions per key of the fused hashing (two fmix32 chains,
+# block and rotation) and per probe bit (address, selects, test), from
+# csrc/hash.cuh and csrc/bloom_bits.cuh
+HASH_OPS, BIT_OPS = 40, 20
+
+
+def device_launches(fn):
+    """(device activities, [(us, name, count)]) of one call of fn: kernels,
+    copies and sets, from torch.profiler. Used only after every timed
+    phase: the profiler is not started before them."""
+    fn()  # warm-up: allocations and the kernel library
+    _, _, rows, n = device_share(fn)
+    return n, rows
+
+
+def log_kernel(tag, rec):
+    log(f"{tag}: identical; per call: wrapper {rec['ms'] * 1e3:.1f} us, "
+        f"kernel alone {rec['device_ms'] * 1e3:.1f} us, plain "
+        f"{rec['plain_ms'] * 1e3:.1f} us; bound {rec['bound_ms'] * 1e3:.2f} "
+        f"us ({rec['bound_by']}, {rec['bound_bytes']} B), achieved "
+        f"{rec['bound_ms'] / rec['device_ms']:.3f} of it alone, "
+        f"{rec['bound_ms'] / rec['ms']:.3f} through the wrapper")
+
+
 @phase("kernels")
 def run_kernels():
     import torch
-
-    from faucet_tpu_torch.core import bloom as BL
-    from faucet_tpu_torch.kernels import cascade as KC
-    from faucet_tpu_torch.kernels import probe as KP
 
     from faucet_tpu_torch.kernels import build as KB
 
@@ -299,58 +351,94 @@ def run_kernels():
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     res = {}
+    res.update(check_probe(gen, dev, lib))
+    res.update(check_cascade(gen, dev, lib))
+    res.update(check_scatter(gen, dev, lib))
+    res.update(check_compact(gen, dev, lib))
+    report["kernels"] = res
+    return res
 
-    # -- probe: a half-full 4 MB filter (B/E), file-mode window probe
-    #    (8192 reads x 70 windows) and the two stacked E-probes
-    words = torch.randint(-(1 << 31), 1 << 31, (1 << 20,), generator=gen,
-                          device=dev, dtype=torch.int64).to(torch.int32)
-    for n in (573_440, 1_146_880):
-        hi, lo = _rand_keys(gen, n, dev)
-        block, h1r, h2 = BL._block_h1r_h2(hi, lo, 25)
-        live = torch.rand((n,), generator=gen, device=dev) < 0.9
-        block = torch.where(live, block, KP.SENTINEL)
-        got = KP.bloom_probe_keys(words, block, h1r, h2, 3)
-        want = KP.bloom_probe_keys_plain(words, block, h1r, h2, 3)
+
+def check_probe(gen, dev, lib):
+    """bloom_contains_codes (B1), hashing fused, against its plain version
+    on a half-full 4 MB filter (B, n_hash 3): the walk's frame (4 x 8,192
+    extensions, its [8,192] mask broadcast), the file-mode window probe
+    (8,192 reads x 70 windows) and the two stacked E-probes."""
+    import torch
+
+    from faucet_tpu_torch.kernels import build as KB
+    from faucet_tpu_torch.kernels import probe as KP
+
+    res, log2_bits, nh = {}, 25, 3
+    words = torch.randint(-(1 << 31), 1 << 31, (1 << (log2_bits - 5),),
+                          generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    for shape in ((4, 8192), (573_440,), (1_146_880,)):
+        hi, lo = _rand_keys(gen, int(np.prod(shape)), dev)
+        hi, lo = hi.view(shape), lo.view(shape)
+        mask = torch.rand(shape[-1:], generator=gen, device=dev) < 0.9
+        args = (words, hi, lo, mask, nh, log2_bits)
+        got = KP.bloom_contains_codes(*args)
+        want = KP.bloom_contains_codes_plain(*args)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
-        if err:
-            raise AssertionError(f"probe kernel != plain at N={n}")
-        k_ms = cuda_ms(lambda: KP.bloom_probe_keys(words, block, h1r, h2,
-                                                   3), 20)
-        p_ms = cuda_ms(lambda: KP.bloom_probe_keys_plain(words, block, h1r,
-                                                         h2, 3), 20)
+        if err or got.shape != want.shape:
+            raise AssertionError(f"bloom_contains_codes != plain at {shape}")
         out = torch.empty_like(got)
-        d_ms = launch_loop_ms(lambda: KB.check(lib.ft_bloom_probe(
-            words.data_ptr(), words.shape[0], block.data_ptr(),
-            h1r.data_ptr(), h2.data_ptr(), out.data_ptr(), n, 3,
-            KB.stream_of(words)), "probe"))
-        hits = float(want.float().mean())
-        log(f"probe N={n}: identical (hit rate {hits:.3f}); per call: "
-            f"wrapper {k_ms * 1e3:.1f} us (kernel alone {d_ms * 1e3:.1f} "
-            f"us), plain {p_ms * 1e3:.1f} us")
-        res[f"probe_{n}"] = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                             "max_abs_err": err}
+        n, live = hi.numel(), mask.expand(shape)
+        raw = lambda: KB.check(lib.ft_bloom_contains(
+            words.data_ptr(), words.shape[0], hi.data_ptr(), lo.data_ptr(),
+            mask.data_ptr(), mask.numel(), out.data_ptr(), n, nh,
+            log2_bits - 9, 0, KB.stream_of(words)), "bloom_contains")
+        blocks, _, _ = KP._block_h1r_h2(hi[live], lo[live], log2_bits)
+        n_live = int(live.sum())
+        rec = {"shape": list(shape), "hit_rate": float(want.float().mean()),
+               "ms": cuda_ms(lambda: KP.bloom_contains_codes(*args), 20),
+               "device_ms": launch_loop_ms(raw),
+               "plain_ms": cuda_ms(
+                   lambda: KP.bloom_contains_codes_plain(*args), 20),
+               "library_ms": None, "max_abs_err": err,
+               **bound(mask.numel() + 16 * n_live + n
+                       + 64 * n_unique(blocks),
+                       n_live * (HASH_OPS + BIT_OPS * nh))}
+        log_kernel(f"bloom_contains_codes {list(shape)} (hit rate "
+                   f"{rec['hit_rate']:.3f})", rec)
+        res["probe_" + "x".join(map(str, shape))] = rec
+    return res
 
-    # -- cascade: A 16 MB, B 4 MB (the 2 Mbp load), two batches of
-    #    573,440 keys with in-batch duplicates; then the sparse node
-    #    insert: D 16 MB, E 4 MB, 1,146,880 lanes, ~3% live
-    def check_cascade(tag, la, lb, nha, nhb, batches):
+
+def check_cascade(gen, dev, lib):
+    """cascade_insert (B2-B4), hashing fused, sort-free, against
+    cascade_insert_plain: filter words, new_b and solid after each of two
+    batches. Shapes: a dense load batch (573,440 keys drawn from a pool of
+    300,000, so in-batch repeats, 97% live) and the sparse node-endpoint
+    insert (1,146,880 lanes, ~3% live, the same live lanes twice, so the
+    second pass promotes them into E); filters of 2**24 / 2**22 bits (2 MB
+    / 0.5 MB, the shapes phase 3 used before the redesign) and of the 2
+    Mbp run's 2**27 / 2**25 bits (A and D 16 MB, B and E 4 MB)."""
+    import torch
+
+    from faucet_tpu_torch.kernels import build as KB
+    from faucet_tpu_torch.kernels import cascade as KC
+    from faucet_tpu_torch.kernels import probe as KP
+
+    def run(tag, la, lb, nha, nhb, batches):
         a = torch.zeros((1 << (la - 5),), dtype=torch.int32, device=dev)
         b = torch.zeros((1 << (lb - 5),), dtype=torch.int32, device=dev)
         ap, bp = a.clone(), b.clone()
-        times = []
+        recs = []
         for bi, (hi, lo, live) in enumerate(batches):
-            h1, h2 = BL.hash_pair(hi, lo)
-            ba, h1r, h2 = BL._block_from_hash(h1, h2, la)
-            bb, _, _ = BL._block_from_hash(h1, h2, lb)
-            ba = torch.where(live, ba, KC.SENTINEL)
-            args = (hi, lo, ba, bb, h1r, h2, nha, nhb)
+            args = (hi, lo, live, la, lb, 0, nha, nhb)
+            n = hi.shape[0]
+            rec = {"n": n, "live": int(live.sum()), "library_ms": None}
             # time on copies of the pre-batch state, then apply for real
-            k_ms = cuda_ms(KC.cascade_insert, 10,
-                           setup=lambda: (a.clone(), b.clone()) + args)
-            p_ms = cuda_ms(KC.cascade_insert_plain, 5,
-                           setup=lambda: (ap.clone(), bp.clone()) + args)
-            d_ms = apply_ms(a.clone(), b.clone(), args)
+            rec["ms"] = cuda_ms(KC.cascade_insert, 10,
+                                setup=lambda: (a.clone(), b.clone()) + args)
+            rec["plain_ms"] = cuda_ms(
+                KC.cascade_insert_plain, 5,
+                setup=lambda: (ap.clone(), bp.clone()) + args)
+            rec["device_ms"] = insert_ms(a.clone(), b.clone(), args)
+            a0, b0 = a.clone(), b.clone()
             nb, sol = KC.cascade_insert(a, b, *args)
             nbp, solp = KC.cascade_insert_plain(ap, bp, *args)
             torch.cuda.synchronize()
@@ -359,33 +447,44 @@ def run_kernels():
                       int((nb.int() - nbp.int()).abs().max()),
                       int((sol.int() - solp.int()).abs().max()))
             if err:
-                raise AssertionError(f"cascade kernel != plain ({tag}, "
+                raise AssertionError(f"cascade_insert != plain ({tag}, "
                                      f"batch {bi})")
-            log(f"cascade {tag} batch {bi}: identical (new_b "
-                f"{int(nb.sum())}, solid {int(sol.sum())}); per call: "
-                f"wrapper {k_ms * 1e3:.1f} us (apply kernel alone "
-                f"{d_ms * 1e3:.1f} us), plain {p_ms * 1e3:.1f} us")
-            times.append({"ms": k_ms, "apply_device_ms": d_ms,
-                          "plain_ms": p_ms, "max_abs_err": err})
-        return times
+            rec["max_abs_err"] = err
+            # bytes this batch needs: codes of live lanes, mask, flags, each
+            # touched block of A and B read once, each changed block
+            # written once
+            keep = live & (hi != KC.SENTINEL)
+            ba, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], la)
+            bb, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], lb)
+            changed = lambda x, y: int((x != y).view(-1, 16).any(1).sum())
+            n_live = rec["live"]
+            rec.update(bound(
+                3 * n + 16 * n_live + 64 * (n_unique(ba) + n_unique(bb)
+                                            + changed(a, a0)
+                                            + changed(b, b0)),
+                n_live * (HASH_OPS + BIT_OPS * (nha + nhb))))
+            log_kernel(f"cascade_insert {tag} batch {bi} (new_b "
+                       f"{int(nb.sum())}, solid {int(sol.sum())})", rec)
+            recs.append(rec)
+        return recs
 
-    def apply_ms(a, b, args):
-        """The apply kernel alone, re-applied to one sorted batch (OR is
-        idempotent, so every launch does the same work)."""
-        hi, lo, ba, bb, h1r, h2, nha, nhb = args
-        probe = lambda qa, qb, r1, r2: (
-            KP.bloom_probe_keys(a, qa, r1, r2, nha),
-            KP.bloom_probe_keys(b, qb, r1, r2, nhb))
-        sa, sb, r1, r2, sidx, seg, in_a, in_b = KC._sorted_batch(
-            hi, lo, ba, bb, h1r, h2, probe)
-        nb = torch.empty_like(in_a)
-        sol = torch.empty_like(in_a)
-        return launch_loop_ms(lambda: KB.check(lib.ft_cascade_apply(
+    def insert_ms(a, b, args):
+        """The three launches alone, back to back on one batch and one
+        state (the first pass fills A, later ones B: each pass ORs one
+        block per key)."""
+        hi, lo, live, la, lb, sb, nha, nhb = args
+        n = hi.shape[0]
+        n_slots = KC.n_slots_for(n)
+        table = KC._table(dev, n_slots)
+        lanes = torch.empty((n,), dtype=torch.int32, device=dev)
+        nb, sol = (torch.empty((n,), dtype=torch.bool, device=dev)
+                   for _ in range(2))
+        return launch_loop_ms(lambda: KB.check(lib.ft_cascade_insert(
             a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
-            sa.data_ptr(), sb.data_ptr(), r1.data_ptr(), r2.data_ptr(),
-            seg.data_ptr(), in_a.data_ptr(), in_b.data_ptr(),
-            sidx.data_ptr(), nb.data_ptr(), sol.data_ptr(), sa.shape[0],
-            nha, nhb, KB.stream_of(a)), "apply"), reps=20)
+            hi.data_ptr(), lo.data_ptr(), live.data_ptr(), n, la - 9, lb - 9,
+            0, nha, nhb, table.data_ptr(), n_slots, lanes.data_ptr(),
+            nb.data_ptr(), sol.data_ptr(), KB.stream_of(a)), "cascade"),
+            reps=20)
 
     n = 573_440
     pool_hi, pool_lo = _rand_keys(gen, 300_000, dev)
@@ -395,20 +494,19 @@ def run_kernels():
         return (pool_hi[pick], pool_lo[pick],
                 torch.rand((n,), generator=gen, device=dev) < 0.97)
 
-    for nha in (4, 7):
-        res[f"cascade_dense_{nha}_3"] = check_cascade(
-            f"dense n_hash {nha}/3", 24, 22, nha, 3,
-            [dense_batch(), dense_batch()])
     ns = 1_146_880
     hi, lo = _rand_keys(gen, ns, dev)
     hi = hi | (torch.randint(0, 2, (ns,), generator=gen, device=dev) << 30)
-    live = torch.rand((ns,), generator=gen, device=dev) < 0.03
-    # the same live lanes twice: the second pass promotes them into E
-    res["cascade_sparse_3_3"] = check_cascade("sparse 3/3", 24, 22, 3, 3,
-                                              [(hi, lo, live)] * 2)
-    res.update(check_scatter(gen, dev, lib))
-    res.update(check_compact(gen, dev, lib))
-    report["kernels"] = res
+    sparse = [(hi, lo, torch.rand((ns,), generator=gen, device=dev) < 0.03)]
+    res = {}
+    for la, lb in ((24, 22), (27, 25)):
+        for nha in (4, 7):
+            res[f"cascade_dense_{la}_{lb}_{nha}_3"] = run(
+                f"dense 2**{la}/2**{lb} bits, n_hash {nha}/3", la, lb, nha,
+                3, [dense_batch(), dense_batch()])
+        res[f"cascade_sparse_{la}_{lb}_3_3"] = run(
+            f"sparse 2**{la}/2**{lb} bits, n_hash 3/3", la, lb, 3, 3,
+            sparse * 2)
     return res
 
 
@@ -438,31 +536,38 @@ def check_scatter(gen, dev, lib):
     hi, lo = _rand_keys(gen, n, dev)
     live = torch.rand((n,), generator=gen, device=dev) < 0.9
 
-    def compare(tag, kernel, plain, w0, args, raw):
+    def compare(tag, kernel, plain, w0, args, raw, cost):
+        """cost(result) -> (bytes, operations) this input needs: each
+        input read once, each changed word or block written once."""
         got, want = kernel(w0.clone(), *args), plain(w0.clone(), *args)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         if err or torch.equal(got, w0):
             raise AssertionError(f"{tag}: kernel != plain (or no bit set)")
-        k_ms = cuda_ms(kernel, 20, setup=lambda: (w0.clone(), *args))
-        p_ms = cuda_ms(plain, 10, setup=lambda: (w0.clone(), *args))
         w = w0.clone()  # OR is idempotent: every launch does the same work
-        d_ms = launch_loop_ms(lambda: KB.check(raw(w), tag))
-        log(f"{tag}: identical; per call: wrapper {k_ms * 1e3:.1f} us "
-            f"(kernel alone {d_ms * 1e3:.1f} us), plain {p_ms * 1e3:.1f} us")
-        return {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                "max_abs_err": err}
+        rec = {"ms": cuda_ms(kernel, 20, setup=lambda: (w0.clone(), *args)),
+               "device_ms": launch_loop_ms(lambda: KB.check(raw(w), tag)),
+               "plain_ms": cuda_ms(plain, 10,
+                                   setup=lambda: (w0.clone(), *args)),
+               "library_ms": None, "max_abs_err": err, **bound(*cost(got))}
+        log_kernel(tag, rec)
+        return rec
 
     for name, log2_bits, nh in (("A", 27, 4), ("B", 25, 3)):
         block, h1r, h2 = BL._block_h1r_h2(hi, lo, log2_bits)
         block = torch.where(live, block, KS.SENTINEL)
         w0 = _bits_set(gen, 1 << (log2_bits - 5), dev)
+        n_live = int(live.sum())
         res[f"scatter_keys_{name}"] = compare(
             f"scatter_or_keys {name} n_hash {nh}", KS.scatter_or_keys,
             KS.scatter_or_keys_plain, w0, (block, h1r, h2, nh),
             lambda w: lib.ft_scatter_or_keys(
                 w.data_ptr(), w.shape[0], block.data_ptr(), h1r.data_ptr(),
-                h2.data_ptr(), n, nh, KB.stream_of(w)))
+                h2.data_ptr(), n, nh, KB.stream_of(w)),
+            lambda got: (8 * n + 16 * n_live + 64 * (
+                n_unique(block[live]) + int(
+                    (got != w0).view(-1, 16).any(1).sum())),
+                n_live * BIT_OPS * nh))
     w0 = _bits_set(gen, 1 << 22, dev)
     pos = torch.randint(0, 1 << 27, (4 * n,), generator=gen, device=dev)
     pos = torch.where(torch.rand((4 * n,), generator=gen, device=dev) < 0.9,
@@ -471,7 +576,10 @@ def check_scatter(gen, dev, lib):
         "scatter_or_bits 16 MB", KS.scatter_or_bits, KS.scatter_or_bits_plain,
         w0, (pos,), lambda w: lib.ft_scatter_or_bits(
             w.data_ptr(), w.shape[0], pos.data_ptr(), 4 * n,
-            KB.stream_of(w)))
+            KB.stream_of(w)),
+        lambda got: (8 * 4 * n + 4 * (
+            n_unique(pos[pos != KS.SENTINEL] >> 5)
+            + int((got != w0).sum())), 0))
 
     # the entry points, counted: bloom_insert on CUDA == on the CPU
     KS.launches_keys = KS.launches_bits = 0
@@ -496,7 +604,8 @@ def check_compact(gen, dev, lib):
     """mask_indices (B7), cap 8192, against its plain version: the scan
     grid of one file-mode batch (573,440 lanes) at ~1.5% and ~30% live
     (both counts above cap), and a spool flush (1,048,576 lanes, ~0.5%
-    live, count below cap)."""
+    live, count below cap). Beside it, as a yardstick only (the port never
+    calls it), torch.nonzero_static(mask, size=cap) plus the count."""
     import torch
 
     from faucet_tpu_torch.kernels import build as KB
@@ -514,19 +623,33 @@ def check_compact(gen, dev, lib):
         if err or int(pcnt) != int(mask.sum()):
             raise AssertionError(f"mask_indices N={n} d={density}: "
                                  "kernel != plain")
-        k_ms = cuda_ms(lambda: KCP.mask_indices(mask, cap), 20)
-        p_ms = cuda_ms(lambda: KCP.mask_indices_plain(mask, cap), 20)
         tot = torch.empty((), dtype=torch.int64, device=dev)
         scratch = torch.empty((n,), dtype=torch.int64, device=dev)
-        d_ms = launch_loop_ms(lambda: KB.check(lib.ft_mask_indices(
-            mask.data_ptr(), n, idx.data_ptr(), cap, tot.data_ptr(),
-            scratch.data_ptr(), KB.stream_of(mask)), "mask_indices"))
-        log(f"mask_indices N={n} count {int(pcnt)} (cap {cap}): identical; "
-            f"per call: wrapper {k_ms * 1e3:.1f} us (kernel alone "
-            f"{d_ms * 1e3:.1f} us), plain {p_ms * 1e3:.1f} us")
-        res[f"compact_{n}_{density}"] = {
-            "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-            "max_abs_err": err, "count": int(pcnt)}
+        rec = {"count": int(pcnt),
+               "ms": cuda_ms(lambda: KCP.mask_indices(mask, cap), 20),
+               "device_ms": launch_loop_ms(lambda: KB.check(
+                   lib.ft_mask_indices(mask.data_ptr(), n, idx.data_ptr(),
+                                       cap, tot.data_ptr(),
+                                       scratch.data_ptr(),
+                                       KB.stream_of(mask)), "mask_indices")),
+               "plain_ms": cuda_ms(lambda: KCP.mask_indices_plain(mask, cap),
+                                   20),
+               "max_abs_err": err, **bound(n + 8 * m + 8)}
+        try:
+            lib_idx = torch.nonzero_static(mask, size=cap).view(-1)
+            if not torch.equal(lib_idx[:m], pidx[:m]):
+                raise AssertionError("nonzero_static disagrees")
+            rec["library_ms"] = cuda_ms(
+                lambda: (torch.nonzero_static(mask, size=cap), mask.sum()),
+                20)
+        except (RuntimeError, NotImplementedError) as e:
+            rec["library_ms"] = None
+            rec["library_note"] = f"nonzero_static raises on CUDA: {e}"[:200]
+        log_kernel(f"mask_indices N={n} count {int(pcnt)} (cap {cap})", rec)
+        log(f"    library yardstick, nonzero_static + count: "
+            + (f"{rec['library_ms'] * 1e3:.1f} us" if rec["library_ms"]
+               is not None else rec["library_note"]))
+        res[f"compact_{n}_{density}"] = rec
     return res
 
 
@@ -588,11 +711,14 @@ def _walk_timer(profile_round=None):
         st["rounds"] += 1
         if st["rounds"] == profile_round:
             out = []
-            st["profiled_round"] = log_share(
+            rec = st["profiled_round"] = log_share(
                 f"walk round {profile_round} ({n_steps} steps x "
                 f"{fr.steps.shape[0]} lanes)", *device_share(
                     lambda: out.append(orig(cascade, junctions, fr, n_steps,
                                             cfg, **kw))))
+            rec["launches_per_step"] = rec["device_launches"] / n_steps
+            log(f"    {rec['launches_per_step']:.2f} device launches per "
+                "walk step")
             return out[0]
         t0 = time.perf_counter()
         r = orig(cascade, junctions, fr, n_steps, cfg, **kw)
@@ -631,6 +757,8 @@ def run_scale(profile: bool = False):
 
     orig, wrapped, wst = _walk_timer(20 if profile else None)
     W.walk_round = wrapped
+    if profile:
+        _profile_load_batch(p, 10)
     try:
         timed("load", lambda: p.load_batches(batch_iter(reads, cfg)))
         timed("scan", lambda: p.scan_batches(batch_iter(reads, cfg)))
@@ -653,6 +781,22 @@ def run_scale(profile: bool = False):
         raise AssertionError(f"assembly {got} != record {SCALE_RECORD}")
     if frac < 0.99:
         raise AssertionError(f"genome-true {frac:.5f} < 0.99")
+
+
+def _profile_load_batch(p, k: int):
+    """Run the k-th load batch of Pipeline p under the profiler: its split
+    into device (kernel) time and host time."""
+    load_batch, calls = p.load_batch, [0]
+
+    def wrapped(bases, lens):
+        calls[0] += 1
+        if calls[0] != k:
+            return load_batch(bases, lens)
+        report["phases"]["scale"]["profiled_load_batch"] = log_share(
+            f"load batch {k}", *device_share(
+                lambda: load_batch(bases, lens)))
+
+    p.load_batch = wrapped
 
 
 def phased_case():
@@ -803,7 +947,7 @@ def run_cli():
                     else ["-read_scan_file", src])
             cmd += ["--paired_ends"] if mode == "paired" else []
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, cwd=REPO, capture_output=True,
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True,
                                text=True, timeout=600)
             if r.returncode:
                 raise RuntimeError(f"cli {mode} failed ({r.returncode}):\n"
@@ -924,11 +1068,45 @@ def run_stream(n_batches: int = 16, warmup: int = 2, groups: int = 5,
                 lambda: [p.stream_step(b, n) for b, n in batches[-4:]]))
 
 
+def launch_census():
+    """Device launches of one call of each redesigned entry point at a
+    main-path shape, from torch.profiler (after every timed phase): the
+    membership query on the walk's [4, 8192] frame, and the cascade insert
+    of a dense load batch into the 2 Mbp run's filters."""
+    import torch
+
+    from faucet_tpu_torch.core import bloom as BL
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    cfg = scale_config(2_000_000, 600_000)
+    c = BL.make_cascade(cfg, dev)
+    hi, lo = _rand_keys(gen, 4 * 8192, dev)
+    m = torch.rand((8192,), generator=gen, device=dev) < 0.9
+    n_probe, rows_p = device_launches(lambda: BL.cascade_solid(
+        c, hi.view(4, -1), lo.view(4, -1), m, cfg))
+    hi, lo = _rand_keys(gen, 573_440, dev)
+    m = torch.rand((573_440,), generator=gen, device=dev) < 0.97
+    n_cascade, rows_c = device_launches(
+        lambda: BL.cascade_insert_nbs(c, hi, lo, m, cfg))
+    rec = {"cascade_solid": n_probe, "cascade_insert_nbs": n_cascade}
+    report["launch_census"] = dict(rec, rows={"cascade_solid": rows_p,
+                                              "cascade_insert_nbs": rows_c})
+    log(f"[counters] device launches per call: {rec}")
+    for us, name, cnt in rows_p + rows_c:
+        log(f"    {us:9.1f} us  x{cnt:<3} {name}")
+    if n_probe != 1 or n_cascade > 3:
+        raise AssertionError(f"device launches per call: {rec}")
+
+
 def kernel_line(launches):
     k = report.get("kernels", {})
     by_path = report["launches_by_path"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms")
 
-    def entry(name, source, replaces, key, rows, ms_row):
+    def entry(name, source, replaces, key, rows, row):
         errs = [r["max_abs_err"] for r in rows]
         e = {"name": name, "route": "cuda",
              "source": f"faucet_tpu_torch/csrc/{source}",
@@ -938,7 +1116,7 @@ def kernel_line(launches):
                                "path)" if key.startswith("scatter")
                                else "the paired path (phase 6)"),
              "max_abs_err": max(errs) if errs else None,
-             "ms": ms_row.get("ms"), "plain_ms": ms_row.get("plain_ms")}
+             **{x: row.get(x) for x in keys}}
         if not key.startswith("scatter"):
             e["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         return e
@@ -948,10 +1126,11 @@ def kernel_line(launches):
                 for r in (v if isinstance(v, list) else [v])]
 
     return {"kernels": [
-        entry("bloom_probe", "probe.cu", "probe.py:98", "probe",
-              rows("probe"), k.get("probe_573440", {})),
+        entry("bloom_contains_codes", "probe.cu", "probe.py:98", "probe",
+              rows("probe"), k.get("probe_4x8192", {})),
         entry("cascade_insert", "cascade.cu", "cascade.py:470", "cascade",
-              rows("cascade"), (k.get("cascade_dense_4_3") or [{}])[0]),
+              rows("cascade"),
+              (k.get("cascade_dense_27_25_7_3") or [{}])[0]),
         entry("scatter_or_keys", "bloom_scatter.cu", "bloom_scatter.py:124",
               "scatter_or_keys", rows("scatter_keys"),
               k.get("scatter_keys_A", {})),
@@ -967,11 +1146,18 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="also run one walk round and 4 stream batches "
-                         "under torch.profiler (device busy share)")
+                    help="also run one load batch, one walk round and 4 "
+                         "stream batches under torch.profiler (device busy "
+                         "share, launches per walk step)")
+    ap.add_argument("--root", default=REPO,
+                    help="import faucet_tpu_torch from this checkout "
+                         "instead (to compare two trees in one run; their "
+                         "phases 4-8 share the API)")
     args = ap.parse_args(argv)
     want = args.phases.split(",")
-    sys.path.insert(0, REPO)
+    global ROOT
+    ROOT = os.path.abspath(args.root)
+    sys.path.insert(0, ROOT)
     t_all = time.perf_counter()
 
     smi = run_device()
@@ -999,6 +1185,7 @@ def main(argv=None) -> int:
         run_stream(profile=args.profile)
     log(f"[counters] main-path launches by path: {by_path}")
     if "counters" in want:
+        launch_census()
         for path, counts in by_path.items():
             if not all(counts.values()):
                 raise AssertionError(f"{path}: a kernel was never launched: "

@@ -2,12 +2,15 @@
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The package mirrors faucet_tpu's layout module for module; faucet_tpu
-stays the reference it is tested against. It imports torch and never jax:
-from faucet_tpu it takes only the jax-free modules (config, metrics,
-io/fastq, io/native). Ported scope: one device, k <= 31 two-word codes,
-Bloom mode, branch-node junction detection, two-pass file mode and
-single-pass streaming (ROADMAP.md lists what is still to port).
+stays the reference it is tested against. It imports torch and never jax,
+and nothing of faucet_tpu: the host modules it shares with the reference
+(config, metrics, io/fastq, io/native with io/cpp/pack.cc, and the other
+host code) are copies that name their source file. Ported scope: one
+device, k <= 31 two-word codes, Bloom mode, branch-node junction
+detection, two-pass file mode and single-pass streaming (ROADMAP.md lists
+what is still to port).
 """
-from faucet_tpu.config import Config  # noqa: F401
-from faucet_tpu.metrics import Metrics  # noqa: F401
-from faucet_tpu.version import __version__  # noqa: F401
+__version__ = "0.1.0"  # faucet_tpu/version.py's
+
+from faucet_tpu_torch.config import Config  # noqa: E402,F401
+from faucet_tpu_torch.metrics import Metrics  # noqa: E402,F401

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from faucet_tpu.config import Config
+from faucet_tpu_torch.config import Config
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import scan as SC
 from faucet_tpu_torch.core import table as T

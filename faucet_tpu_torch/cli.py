@@ -17,8 +17,8 @@ import argparse
 import os
 import sys
 
-from faucet_tpu.config import Config
-from faucet_tpu.metrics import Metrics
+from faucet_tpu_torch.config import Config
+from faucet_tpu_torch.metrics import Metrics
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,7 +127,7 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
 
     # imports deferred: --help must not pay torch startup
-    from faucet_tpu.io.fastq import read_seqs
+    from faucet_tpu_torch.io.fastq import read_seqs
     from faucet_tpu_torch.ckpt import state as CK
     from faucet_tpu_torch.out.fasta import write_contigs
     from faucet_tpu_torch.out.gfa import write_gfa
@@ -155,7 +155,7 @@ def main(argv=None) -> int:
 
     use_native = not args.no_native
     if use_native:
-        from faucet_tpu.io import native as NV
+        from faucet_tpu_torch.io import native as NV
 
         use_native = NV.available()
         if use_native:
@@ -168,7 +168,7 @@ def main(argv=None) -> int:
 
     def batches_of(path):
         if use_native:
-            from faucet_tpu.io import native as NV
+            from faucet_tpu_torch.io import native as NV
 
             return NV.native_batch_iter(path, cfg.fastq, cfg.batch_reads,
                                         cfg.max_read_length)

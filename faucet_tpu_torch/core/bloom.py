@@ -7,7 +7,9 @@ one block, bit j = (h1r + (j+1)*h2) & 511, so a probe is one 64-byte
 read. Membership, plain inserts and cascade inserts go through
 kernels/probe.py, kernels/bloom_scatter.py and kernels/cascade.py, which
 launch the CUDA kernels for CUDA tensors and take their plain torch
-versions for CPU tensors.
+versions for CPU tensors. Membership and cascade inserts take the codes
+themselves: their kernels hash in registers, one launch per membership
+query.
 
 Within a batch the cascade keeps the reference's sequential semantics by
 counting duplicate keys: a k-mer seen twice in one batch is solid.
@@ -19,13 +21,13 @@ from typing import NamedTuple, Tuple
 import torch
 
 from faucet_tpu_torch.core import table as T
-from faucet_tpu_torch.core.hashing import hash_pair
 from faucet_tpu_torch.kernels import bloom_scatter as SK
 from faucet_tpu_torch.kernels import cascade as CK
 from faucet_tpu_torch.kernels import probe as PK
+# the blocked addressing lives with the probe kernel's plain version
+from faucet_tpu_torch.kernels.probe import _block_h1r_h2
 
 SENTINEL = 0xFFFFFFFF
-M32 = 0xFFFFFFFF
 
 
 class Bloom(NamedTuple):
@@ -36,28 +38,6 @@ def make_bloom(log2_bits: int, device=None) -> Bloom:
     assert log2_bits >= 5
     return Bloom(words=torch.zeros((1 << (log2_bits - 5),),
                                    dtype=torch.int32, device=device))
-
-
-BLOCK_BITS = 9          # 512-bit blocks = 16 words = 64 B
-BLOCK_WORDS = 1 << (BLOCK_BITS - 5)
-
-
-def _block_from_hash(h1, h2, log2_bits: int, shard_bits: int = 0):
-    """(block, h1r, h2) from a key's hashes (see _block_h1r_h2)."""
-    local_block_bits = log2_bits - shard_bits - BLOCK_BITS
-    block = h1 & ((1 << local_block_bits) - 1)
-    if shard_bits:
-        block = block | ((h1 >> (32 - shard_bits)) << local_block_bits)
-    # bit stream decorrelated from the block choice via h1's high half
-    h1r = (h1 >> 16) | ((h1 << 16) & M32)
-    return block, h1r, h2
-
-
-def _block_h1r_h2(khi, klo, log2_bits: int, shard_bits: int = 0):
-    """Blocked-Bloom addressing: (block index, rotated h1, h2); bit_j of
-    a key = (h1r + (j+1)*h2) & 511 inside `block`."""
-    h1, h2 = hash_pair(khi, klo)
-    return _block_from_hash(h1, h2, log2_bits, shard_bits)
 
 
 def _block_and_bits(khi, klo, n_hash: int, log2_bits: int,
@@ -84,12 +64,10 @@ def bloom_insert(b: Bloom, khi, klo, mask, n_hash: int,
 
 def bloom_contains(b: Bloom, khi, klo, mask, n_hash: int, log2_bits: int,
                    shard_bits: int = 0):
-    """Membership probes (the probe kernel on CUDA tensors)."""
-    block, h1r, h2 = _block_h1r_h2(khi.reshape(-1), klo.reshape(-1),
+    """Membership probes: one launch of the probe kernel on CUDA tensors
+    (hashing included); mask broadcasts to khi's shape."""
+    return PK.bloom_contains_codes(b.words, khi, klo, mask, n_hash,
                                    log2_bits, shard_bits)
-    block = torch.where(mask.reshape(-1), block, SENTINEL)
-    return PK.bloom_probe_keys(b.words, block, h1r, h2,
-                               n_hash).reshape(khi.shape)
 
 
 # ---- solidity cascade --------------------------------------------------
@@ -137,17 +115,11 @@ def cascade_insert_nbs(c: Cascade, khi, klo, mask, cfg
 
     The filters of `c` are updated in place and `c` is returned. Mostly
     masked input (the node-endpoint inserts) needs no path of its own: the
-    kernel's sort packs the live lanes in front."""
-    sb = cfg.shard_bits
-    la = cfg.bloom_a_bits.bit_length() - 1
-    lb = cfg.bloom_b_bits.bit_length() - 1
-    h1, h2 = hash_pair(khi, klo)
-    block_a, h1r, h2 = _block_from_hash(h1, h2, la, sb)
-    block_b, _, _ = _block_from_hash(h1, h2, lb, sb)
-    block_a = torch.where(mask, block_a, SENTINEL)
-    new_b, solid = CK.cascade_insert(c.a_bloom.words, c.b_bloom.words, khi,
-                                     klo, block_a, block_b, h1r, h2,
-                                     cfg.n_hash_a, cfg.n_hash_b)
+    kernel's dead lanes exit at once."""
+    new_b, solid = CK.cascade_insert(
+        c.a_bloom.words, c.b_bloom.words, khi, klo, mask,
+        cfg.bloom_a_bits.bit_length() - 1, cfg.bloom_b_bits.bit_length() - 1,
+        cfg.shard_bits, cfg.n_hash_a, cfg.n_hash_b)
     return c, new_b, solid
 
 

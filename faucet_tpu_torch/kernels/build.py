@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("probe.cu", "cascade.cu", "bloom_scatter.cu", "compact.cu")
-HEADERS = ("bloom_bits.cuh",)
+HEADERS = ("bloom_bits.cuh", "hash.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -95,11 +95,13 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.ft_bloom_probe.restype = i32
-        lib.ft_bloom_probe.argtypes = [p, i64, p, p, p, p, i64, i32, p]
-        lib.ft_cascade_apply.restype = i32
-        lib.ft_cascade_apply.argtypes = [p, i64, p, i64, p, p, p, p, p, p,
-                                         p, p, p, p, i64, i32, i32, p]
+        lib.ft_bloom_contains.restype = i32
+        lib.ft_bloom_contains.argtypes = [p, i64, p, p, p, i64, p, i64, i32,
+                                          i32, i32, p]
+        lib.ft_cascade_insert.restype = i32
+        lib.ft_cascade_insert.argtypes = [p, i64, p, i64, p, p, p, i64, i32,
+                                          i32, i32, i32, i32, p, i64, p, p,
+                                          p, p]
         lib.ft_scatter_or_keys.restype = i32
         lib.ft_scatter_or_keys.argtypes = [p, i64, p, p, p, i64, i32, p]
         lib.ft_scatter_or_bits.restype = i32

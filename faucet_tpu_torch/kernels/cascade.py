@@ -1,31 +1,31 @@
-"""Bloom-cascade insert (port of faucet_tpu/kernels/cascade.py).
+"""Bloom-cascade insert (port of faucet_tpu/kernels/cascade.py, with the
+hashing fused in).
 
 For each key in stream order: if filter A holds it, add it to filter B,
-else add it to A. `cascade_insert` computes the sort+count formulation the
-reference runs on its CPU backend (faucet_tpu/core/bloom.py
-cascade_insert_nbs) — the TPU kernel's filter words equal it bit for bit;
-see csrc/cascade.cu for the design and the relation of the flags:
+else add it to A. `cascade_insert` computes the formulation the reference
+runs on its CPU backend (faucet_tpu/core/bloom.py cascade_insert_nbs);
+the TPU kernel's filter words equal it bit for bit. It takes the codes
+themselves: a lane is live when its mask is set and its hi word is not
+0xFFFFFFFF (the reference's sort key of a masked lane).
 
-1. a stable torch sort groups the batch by key (first occurrence first,
-   masked lanes last) — shared by both versions below;
-2. the probe kernel (kernels/probe.py) reads pre-batch A and B for each
-   key's first occurrence;
-3. the apply kernel csrc/cascade.cu ORs the bits in and writes the
-   per-lane flags back through the sort permutation.
+CUDA tensors take csrc/cascade.cu: three launches (count, apply, clear)
+around a scratch hash table that this module keeps per device and size,
+and no sort (see the source for the design). CPU tensors take
+`cascade_insert_plain`, which groups the batch with a stable sort as the
+reference does. Nothing falls back from one to the other. The filters are
+updated IN PLACE (the reference returns new arrays; the port saves the
+copy of 20 MB per batch).
 
-CUDA tensors launch the kernels, CPU tensors take the plain version;
-nothing falls back. The filters are updated IN PLACE (the reference
-returns new arrays; the port saves the copy of 20 MB per batch).
-
-Argument types: a_words, b_words int32 (uint32 bit patterns); khi, klo,
-block_a, block_b, h1r, h2 int64[N] holding uint32 values; block_a ==
-SENTINEL marks a masked lane. Returns (new_b, solid), bool[N].
+Argument types: a_words, b_words int32 (uint32 bit patterns) of 2**la and
+2**lb bits; khi, klo int64[N] holding uint32 values; mask bool[N].
+Returns (new_b, solid), bool[N].
 """
 from __future__ import annotations
 
 import torch
 
 from faucet_tpu_torch.core import u32x2 as u2
+from faucet_tpu_torch.core.hashing import hash_pair
 from faucet_tpu_torch.kernels import build as KB
 from faucet_tpu_torch.kernels import probe as PK
 from faucet_tpu_torch.kernels.bloom_scatter import bloom_or_plain
@@ -33,46 +33,53 @@ from faucet_tpu_torch.kernels.bloom_scatter import bloom_or_plain
 SENTINEL = 0xFFFFFFFF
 _KEY_LAST = (1 << 63) - 1  # sort key of masked lanes: after every key
 
-# kernel launches by cascade_insert (reset and read by chip_smoke.py)
+# kernel launches by cascade_insert, one per call (each call is three
+# device launches; reset and read by chip_smoke.py)
 launches = 0
 
+# scratch hash tables, int32[n_slots, 4] (16-byte slots, all ones when
+# empty), by (device, n_slots); each call leaves its table clean
+_tables = {}
 
-def _sorted_batch(khi, klo, block_a, block_b, h1r, h2, probe):
-    """Sort lanes by key (stable: a key's first in-batch occurrence leads
-    its run), then probe pre-batch state at each run's first lane — the
-    port of the reference's _batch_counts (core/bloom.py) plus its two
-    pre-batch probes.
 
-    Returns the sorted lanes' (block_a, block_b, h1r, h2), sidx (sorted
-    position -> original lane), seg_start (first sorted position of each
-    lane's key run) and the probe function's (in_a, in_b)."""
-    n = khi.shape[0]
-    key = torch.where(block_a == SENTINEL, _KEY_LAST, u2.sort_key(khi, klo))
+def n_slots_for(n: int) -> int:
+    """Slots for an n-lane batch: the least power of two with n <= 0.6 *
+    slots (load factor <= 0.6 with every lane live and distinct)."""
+    return max(16, 1 << (-(-5 * n // 3) - 1).bit_length())
+
+
+def _table(device, n_slots: int):
+    t = _tables.get((device, n_slots))
+    if t is None:
+        t = torch.full((n_slots, 4), -1, dtype=torch.int32, device=device)
+        _tables[(device, n_slots)] = t
+    return t
+
+
+def cascade_insert_plain(a_words, b_words, khi, klo, mask, la: int, lb: int,
+                         shard_bits: int, n_hash_a: int, n_hash_b: int):
+    """Plain torch version of `cascade_insert` (any device): the
+    reference's sort+count formulation. A stable sort groups the batch by
+    key (first occurrence first, dead lanes last); pre-batch A and B are
+    probed at each key's first lane."""
+    live = mask & (khi != SENTINEL)
+    h1, h2 = hash_pair(khi, klo)
+    block_a, h1r, h2 = PK._block_from_hash(h1, h2, la, shard_bits)
+    block_b, _, _ = PK._block_from_hash(h1, h2, lb, shard_bits)
+    key = torch.where(live, u2.sort_key(khi, klo), _KEY_LAST)
     skey, sidx = torch.sort(key, stable=True)
-    ba, bb, r1, r2 = (t[sidx] for t in (block_a, block_b, h1r, h2))
+    ba, bb, r1, r2, slive = (t[sidx] for t in (block_a, block_b, h1r, h2,
+                                                live))
+    n = khi.shape[0]
     iota = torch.arange(n, device=khi.device)
     head = torch.ones((n,), dtype=torch.bool, device=khi.device)
     head[1:] = skey[1:] != skey[:-1]
     seg_start = torch.cummax(torch.where(head, iota, 0), dim=0).values
-    rep = head & (ba != SENTINEL)
-    in_a, in_b = probe(torch.where(rep, ba, SENTINEL),
-                       torch.where(rep, bb, SENTINEL), r1, r2)
-    return ba, bb, r1, r2, sidx, seg_start, in_a, in_b
-
-
-def cascade_insert_plain(a_words, b_words, khi, klo, block_a, block_b, h1r,
-                         h2, n_hash_a: int, n_hash_b: int):
-    """Plain torch version of `cascade_insert` (any device)."""
-    def probe(qa, qb, r1, r2):
-        return (PK.bloom_probe_keys_plain(a_words, qa, r1, r2, n_hash_a),
-                PK.bloom_probe_keys_plain(b_words, qb, r1, r2, n_hash_b))
-
-    ba, bb, r1, r2, sidx, seg_start, in_a, in_b = _sorted_batch(
-        khi, klo, block_a, block_b, h1r, h2, probe)
-    n = khi.shape[0]
-    iota = torch.arange(n, device=khi.device)
-    live = ba != SENTINEL
-    rep = live & (seg_start == iota)
+    rep = head & slive
+    in_a = PK.bloom_probe_keys_plain(a_words, torch.where(rep, ba, SENTINEL),
+                                     r1, r2, n_hash_a)
+    in_b = PK.bloom_probe_keys_plain(b_words, torch.where(rep, bb, SENTINEL),
+                                     r1, r2, n_hash_b)
     dup = torch.zeros_like(rep)
     dup[:-1] = seg_start[1:] == iota[:-1]
     add_b = rep & (in_a | dup)
@@ -81,50 +88,56 @@ def cascade_insert_plain(a_words, b_words, khi, klo, block_a, block_b, h1r,
     new_b[sidx] = add_b & ~in_b
     solid = torch.zeros_like(rep)
     solid[sidx] = (in_b[seg_start] | in_a[seg_start] | (iota > seg_start)) \
-        & live
+        & slive
     bloom_or_plain(a_words, ba, r1, r2, add_a, n_hash_a)
     bloom_or_plain(b_words, bb, r1, r2, add_b, n_hash_b)
     return new_b, solid
 
 
-def cascade_insert(a_words, b_words, khi, klo, block_a, block_b, h1r, h2,
-                   n_hash_a: int, n_hash_b: int):
+def cascade_insert(a_words, b_words, khi, klo, mask, la: int, lb: int,
+                   shard_bits: int, n_hash_a: int, n_hash_b: int):
     """Cascade-insert a batch; updates a_words/b_words in place and
     returns (new_b, solid) per lane."""
     global launches
     if not a_words.is_cuda:
-        return cascade_insert_plain(a_words, b_words, khi, klo, block_a,
-                                    block_b, h1r, h2, n_hash_a, n_hash_b)
-    for name, t in (("a_words", a_words), ("b_words", b_words)):
+        return cascade_insert_plain(a_words, b_words, khi, klo, mask, la, lb,
+                                    shard_bits, n_hash_a, n_hash_b)
+    for name, t, log2 in (("a_words", a_words, la), ("b_words", b_words, lb)):
         KB.require_cuda(name, t, torch.int32)
-        if t.shape[0] % PK.BLOCK_WORDS:
-            raise ValueError(f"{name}: length must be a multiple of 16")
+        if t.shape[0] != 1 << (log2 - 5) or t.data_ptr() % 16:
+            raise ValueError(f"{name}: not a 16-byte aligned filter of "
+                             f"2**{log2} bits")
+        if not 0 <= log2 - shard_bits - PK.BLOCK_BITS < 32:
+            raise ValueError(f"{name}: 2**{log2} bits with shard_bits "
+                             f"{shard_bits}")
     n = khi.shape[0]
-    for name, t in (("khi", khi), ("klo", klo), ("block_a", block_a),
-                    ("block_b", block_b), ("h1r", h1r), ("h2", h2)):
-        KB.require_cuda(name, t, torch.int64)
+    for name, t, dt in (("khi", khi, torch.int64), ("klo", klo, torch.int64),
+                        ("mask", mask, torch.bool)):
+        KB.require_cuda(name, t, dt)
         if t.shape[0] != n or t.device != a_words.device:
             raise ValueError(f"{name}: shape/device mismatch")
     if not (1 <= n_hash_a <= 16 and 1 <= n_hash_b <= 16):
         raise ValueError(f"n_hash out of range: {n_hash_a}, {n_hash_b}")
-
-    def probe(qa, qb, r1, r2):
-        return (PK.bloom_probe_keys(a_words, qa, r1, r2, n_hash_a),
-                PK.bloom_probe_keys(b_words, qb, r1, r2, n_hash_b))
-
-    ba, bb, r1, r2, sidx, seg_start, in_a, in_b = _sorted_batch(
-        khi, klo, block_a, block_b, h1r, h2, probe)
-    new_b = torch.empty((n,), dtype=torch.bool, device=a_words.device)
-    solid = torch.empty((n,), dtype=torch.bool, device=a_words.device)
+    if n >= 1 << 28:
+        raise ValueError(f"{n} lanes: at most 2**28 per call")
+    dev = a_words.device
+    new_b = torch.empty((n,), dtype=torch.bool, device=dev)
+    solid = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return new_b, solid
-    lib = KB.library()
-    KB.check(lib.ft_cascade_apply(
+    n_slots = n_slots_for(n)
+    table = _table(dev, n_slots)
+    lanes = torch.empty((n,), dtype=torch.int32, device=dev)
+    code = KB.library().ft_cascade_insert(
         a_words.data_ptr(), a_words.shape[0], b_words.data_ptr(),
-        b_words.shape[0], ba.data_ptr(), bb.data_ptr(), r1.data_ptr(),
-        r2.data_ptr(), seg_start.data_ptr(), in_a.data_ptr(),
-        in_b.data_ptr(), sidx.data_ptr(), new_b.data_ptr(),
-        solid.data_ptr(), n, n_hash_a, n_hash_b, KB.stream_of(a_words)),
-        "cascade_apply")
+        b_words.shape[0], khi.data_ptr(), klo.data_ptr(), mask.data_ptr(), n,
+        la - shard_bits - PK.BLOCK_BITS, lb - shard_bits - PK.BLOCK_BITS,
+        shard_bits, n_hash_a, n_hash_b, table.data_ptr(), n_slots,
+        lanes.data_ptr(), new_b.data_ptr(), solid.data_ptr(),
+        KB.stream_of(a_words))
+    if code:
+        # a launch that failed may leave slots claimed: drop the table
+        del _tables[(dev, n_slots)]
+        KB.check(code, "cascade_insert")
     launches += 1
     return new_b, solid

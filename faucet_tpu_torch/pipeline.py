@@ -17,8 +17,8 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from faucet_tpu.config import Config
-from faucet_tpu.metrics import Metrics
+from faucet_tpu_torch.config import Config
+from faucet_tpu_torch.metrics import Metrics
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import scan as SC
 from faucet_tpu_torch.core import table as T
@@ -186,7 +186,7 @@ class Pipeline:
     def _mate_batches(self, reads: Iterable[str]):
         """Interleaved mates -> packed (bases1, lens1, bases2, lens2), up
         to batch_reads pairs each (the last batch padded)."""
-        from faucet_tpu.io.fastq import deinterleave
+        from faucet_tpu_torch.io.fastq import deinterleave
 
         B, L = self.cfg.batch_reads, self.cfg.max_read_length
         m1, m2 = [], []

@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from faucet_tpu.config import Config
+from faucet_tpu.config import Config as JConfig
 from faucet_tpu_torch.ckpt import state as CK
+from faucet_tpu_torch.config import Config as TConfig
 from faucet_tpu_torch.core import bloom as TBL
 from faucet_tpu_torch.core import u32x2 as TU
 from faucet_tpu_torch.kernels import bloom_scatter as KS
@@ -73,12 +74,6 @@ def _dup(hi, lo):
     return hi, lo
 
 
-def _probe_args(words, hi, lo, mask, log2):
-    block, h1r, h2 = TBL._block_h1r_h2(TU.u32(hi), TU.u32(lo), log2)
-    block = torch.where(torch.from_numpy(mask), block, SENT)
-    return words, block, h1r, h2
-
-
 @pytest.mark.parametrize("log2_bits,n_keys,n_hash",
                          [(16, 300, 3), (19, 5000, 7), (22, 3000, 3)])
 def test_probe_plain_matches_reference(ref, rng, log2_bits, n_keys,
@@ -108,8 +103,8 @@ def test_probe_plain_matches_reference(ref, rng, log2_bits, n_keys,
                                 h1r, h2, n_hash, interpret=True))
     np.testing.assert_array_equal(want_k, want)
     before = KP.launches
-    got = KP.bloom_probe_keys(*_probe_args(tb.words, qhi, qlo, qmask,
-                                           log2_bits), n_hash)
+    got = KP.bloom_contains_codes(tb.words, TU.u32(qhi), TU.u32(qlo),
+                                  torch.from_numpy(qmask), n_hash, log2_bits)
     assert KP.launches == before  # CPU tensors take the plain version
     np.testing.assert_array_equal(got.numpy(), want)
     got = TBL.bloom_contains(tb, TU.u32(qhi), TU.u32(qlo),
@@ -118,18 +113,49 @@ def test_probe_plain_matches_reference(ref, rng, log2_bits, n_keys,
     assert got[: n_keys // 2][torch.from_numpy(qmask[: n_keys // 2])].all()
 
 
-def _cfg(la, lb, **kw):
-    return Config(size_kmer=31, max_read_length=64,
-                  bloom_a_log2_override=la, bloom_b_log2_override=lb, **kw)
+@pytest.mark.parametrize("shape,shard_bits", [((4, 257), 0),
+                                              ((2, 3, 50), 2)])
+def test_contains_codes_plain_shapes_and_shards(ref, rng, shape, shard_bits):
+    """bloom_contains_codes (plain) == the reference's bloom_contains on an
+    N-D batch of codes, with the mask broadcast along the leading
+    dimensions (the walk's [4, W] frame) and shard bits in the block
+    address."""
+    jnp, JBL = ref.jnp, ref.BL
+    log2_bits, n_hash = 18, 4
+    n = int(np.prod(shape))
+    hi, lo = _keys(rng, n)
+    jb = JBL.bloom_insert(JBL.make_bloom(log2_bits), jnp.asarray(hi),
+                          jnp.asarray(lo), jnp.asarray(rng.random(n) < 0.5),
+                          n_hash, log2_bits, shard_bits)
+    hi, lo = hi.reshape(shape), lo.reshape(shape)
+    row_mask = rng.random(shape[-1]) < 0.8
+    want = np.asarray(JBL.bloom_contains(
+        jb, jnp.asarray(hi), jnp.asarray(lo),
+        jnp.asarray(np.broadcast_to(row_mask, shape)), n_hash, log2_bits,
+        shard_bits))
+    got = KP.bloom_contains_codes(CK.words_from_numpy(jb.words),
+                                  TU.u32(hi), TU.u32(lo),
+                                  torch.from_numpy(row_mask), n_hash,
+                                  log2_bits, shard_bits)
+    assert got.shape == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
 
 
-def _both_insert(ref, jc, tc, hi, lo, mask, cfg):
+def _cfgs(la, lb, **kw):
+    """The reference's Config and the port's, from the same arguments."""
+    kw = dict(size_kmer=31, max_read_length=64, bloom_a_log2_override=la,
+              bloom_b_log2_override=lb, **kw)
+    return JConfig(**kw), TConfig(**kw)
+
+
+def _both_insert(ref, jc, tc, hi, lo, mask, cfgs):
     jnp, JBL = ref.jnp, ref.BL
     jc, jnb, jsol = JBL.cascade_insert_nbs(jc, jnp.asarray(hi),
                                            jnp.asarray(lo),
-                                           jnp.asarray(mask), cfg)
+                                           jnp.asarray(mask), cfgs[0])
     tc, tnb, tsol = TBL.cascade_insert_nbs(tc, TU.u32(hi), TU.u32(lo),
-                                           torch.from_numpy(mask), cfg)
+                                           torch.from_numpy(mask), cfgs[1])
     np.testing.assert_array_equal(CK.words_to_numpy(tc.a_bloom.words),
                                   np.asarray(jc.a_bloom.words))
     np.testing.assert_array_equal(CK.words_to_numpy(tc.b_bloom.words),
@@ -143,7 +169,7 @@ def _both_insert(ref, jc, tc, hi, lo, mask, cfg):
 def test_cascade_plain_matches_reference(ref, rng, case):
     """Words, new_b and solid identical to the reference's sort+count
     formulation over two batches."""
-    cfg = _cfg(20, 17)
+    cfgs = _cfgs(20, 17)
     n = 3000
     hi, lo = _keys(rng, n)
     mask = rng.random(n) < 0.9
@@ -154,16 +180,65 @@ def test_cascade_plain_matches_reference(ref, rng, case):
     elif case == "sparse":
         mask = rng.random(n) < 0.03
     else:  # the node cascade's sizes, tagged keys, sparse mask
-        cfg = _cfg(18, 16, n_hash_a_override=3, n_hash_b_override=3)
+        cfgs = _cfgs(18, 16, n_hash_a_override=3, n_hash_b_override=3)
         hi = hi | (rng.integers(0, 2, size=n).astype(np.uint32) << 30)
         mask = rng.random(n) < 0.05
-    jc = ref.BL.make_cascade(cfg)
+    jc = ref.BL.make_cascade(cfgs[0])
     tc = CK.cascade_from_numpy(jc)
     for batch in range(2):
-        jc, tc = _both_insert(ref, jc, tc, hi, lo, mask, cfg)
+        jc, tc = _both_insert(ref, jc, tc, hi, lo, mask, cfgs)
         hi, lo, mask = hi[::-1].copy(), lo[::-1].copy(), mask[::-1].copy()
     if case == "all_masked":
         assert int(tc.a_bloom.words.abs().sum()) == 0
+
+
+def _cascade_batch(rng, n, case):
+    """Codes and mask of one cascade batch: dense (in-batch duplicates and
+    triples), mostly masked, a few hot keys repeated hundreds of times,
+    or live lanes whose hi word is 0xFFFFFFFF (dead to the reference)."""
+    hi, lo = _dup(*_keys(rng, n))
+    mask = rng.random(n) < 0.95
+    if case == "mostly_masked":
+        mask = rng.random(n) < 0.03
+    elif case == "hot_dups":
+        pick = rng.integers(0, max(1, n // 500), n)
+        hi, lo = hi[pick], lo[pick]
+    elif case == "dead_hi":
+        hi[::5] = SENT
+    return hi, lo, mask
+
+
+@pytest.mark.parametrize("case,n_shards", [
+    ("dense", 1), ("mostly_masked", 1), ("hot_dups", 1), ("dead_hi", 1),
+    ("dense", 4)])
+def test_cascade_insert_plain_matches_reference(ref, rng, case, n_shards):
+    """kernels/cascade.cascade_insert_plain, given the codes, the mask and
+    the filter sizes, == the reference's cascade_insert_nbs: filter words,
+    new_b and solid, over two batches on the same filters."""
+    jnp, JBL = ref.jnp, ref.BL
+    jcfg, _ = _cfgs(19, 17, n_hash_a_override=5, n_hash_b_override=3,
+                    n_shards=n_shards)
+    hi, lo, mask = _cascade_batch(rng, 4000, case)
+    jc = JBL.make_cascade(jcfg)
+    a = CK.words_from_numpy(jc.a_bloom.words)
+    b = CK.words_from_numpy(jc.b_bloom.words)
+    flags = []
+    for _ in range(2):
+        jc, jnb, jsol = JBL.cascade_insert_nbs(
+            jc, jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(mask), jcfg)
+        nb, sol = KC.cascade_insert_plain(
+            a, b, TU.u32(hi), TU.u32(lo), torch.from_numpy(mask), 19, 17,
+            jcfg.shard_bits, jcfg.n_hash_a, jcfg.n_hash_b)
+        np.testing.assert_array_equal(CK.words_to_numpy(a),
+                                      np.asarray(jc.a_bloom.words))
+        np.testing.assert_array_equal(CK.words_to_numpy(b),
+                                      np.asarray(jc.b_bloom.words))
+        np.testing.assert_array_equal(nb.numpy(), np.asarray(jnb))
+        np.testing.assert_array_equal(sol.numpy(), np.asarray(jsol))
+        flags += [bool(nb.any()), bool(sol.any()), not bool(sol.all())]
+        perm = rng.permutation(len(hi))
+        hi, lo, mask = hi[perm], lo[perm], mask[perm]
+    assert flags[0] and flags[4] and flags[5]  # new_b in the first batch
 
 
 @pytest.mark.parametrize("la,lb,n,dup", [(18, 16, 500, False),
@@ -173,18 +248,18 @@ def test_cascade_plain_vs_tpu_kernel(ref, rng, la, lb, n, dup):
     new_b key multisets equal, and the kernel's solid flags a superset by
     under 3% (it probes B mid-batch, the formulation pre-batch)."""
     jnp, JBL = ref.jnp, ref.BL
-    cfg = _cfg(la, lb)
+    jcfg, cfg = _cfgs(la, lb)
     hi, lo = _keys(rng, n)
     if dup:
         hi, lo = _dup(hi, lo)
     mask = rng.random(n) < 0.9
-    c0 = JBL.make_cascade(cfg)
+    c0 = JBL.make_cascade(jcfg)
     ba, h1r, h2 = JBL._block_h1r_h2(jnp.asarray(hi), jnp.asarray(lo), la)
     bb, _, _ = JBL._block_h1r_h2(jnp.asarray(hi), jnp.asarray(lo), lb)
     ba = jnp.where(jnp.asarray(mask), ba, JSENT)
     aw, bw, nb_k, sol_k = ref.fused(
-        c0.a_bloom.words, c0.b_bloom.words, ba, bb, h1r, h2, cfg.n_hash_a,
-        cfg.n_hash_b, with_solid=True, interpret=True)
+        c0.a_bloom.words, c0.b_bloom.words, ba, bb, h1r, h2, jcfg.n_hash_a,
+        jcfg.n_hash_b, with_solid=True, interpret=True)
     tc = TBL.make_cascade(cfg)
     tc, nb_t, sol_t = TBL.cascade_insert_nbs(tc, TU.u32(hi), TU.u32(lo),
                                              torch.from_numpy(mask), cfg)
@@ -213,10 +288,11 @@ def test_wrappers_take_plain_version_on_cpu():
     k = torch.zeros(4, dtype=torch.int64)
     # CPU tensors take the plain version and count no launch; the CUDA
     # wrappers' checks are exercised on the card (the cuda tests below)
+    m = torch.zeros(4, dtype=torch.bool)
     before = _launches()
-    assert KP.bloom_probe_keys(w, k + SENT, k, k, 3).sum() == 0
-    new_b, solid = KC.cascade_insert(w.clone(), w.clone(), k, k, k + SENT,
-                                     k, k, k, 3, 3)
+    assert KP.bloom_contains_codes(w, k, k, ~m, 3, 10).sum() == 0
+    new_b, solid = KC.cascade_insert(w.clone(), w.clone(), k, k, m, 10, 10,
+                                     0, 3, 3)
     assert not new_b.any() and not solid.any()
     assert int(KS.scatter_or_keys(w.clone(), k + SENT, k, k, 3).abs().sum()) \
         == 0
@@ -297,10 +373,12 @@ def test_mask_indices_plain_vs_tpu_kernel(ref, rng, density, cap):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_hash_a", [4, 7])
 def test_kernels_on_card(cuda, n_hash_a):
-    """CUDA kernels == plain versions bit for bit, two dense batches with
-    duplicates, then a ~3%-live sparse batch."""
+    """Through core/bloom on the card == on the CPU bit for bit: two dense
+    batches with duplicates, then a ~3%-live sparse batch (one cascade
+    call each, no probe launch of its own), then a membership query (one
+    probe launch)."""
     rng = np.random.default_rng(12345)
-    cfg = _cfg(22, 20, n_hash_a_override=n_hash_a, n_hash_b_override=3)
+    _, cfg = _cfgs(22, 20, n_hash_a_override=n_hash_a, n_hash_b_override=3)
     n = 200_000
     hi, lo = _dup(*_keys(rng, n))
     cg, cp = TBL.make_cascade(cfg, cuda), TBL.make_cascade(cfg)
@@ -311,7 +389,7 @@ def test_kernels_on_card(cuda, n_hash_a):
             cg, TU.u32(hi).to(cuda), TU.u32(lo).to(cuda),
             torch.from_numpy(mask).to(cuda), cfg)
         torch.cuda.synchronize()
-        assert KC.launches == kl[0] + 1 and KP.launches == kl[1] + 2
+        assert (KC.launches, KP.launches) == (kl[0] + 1, kl[1])
         _, nb_p, sol_p = TBL.cascade_insert_nbs(
             cp, TU.u32(hi), TU.u32(lo), torch.from_numpy(mask), cfg)
         assert torch.equal(cg.a_bloom.words.cpu(), cp.a_bloom.words)
@@ -321,15 +399,73 @@ def test_kernels_on_card(cuda, n_hash_a):
         hi, lo = hi[::-1].copy(), lo[::-1].copy()
     qhi, qlo = _keys(rng, n)
     qmask = rng.random(n) < 0.9
+    before = KP.launches
     g = TBL.bloom_contains(cg.b_bloom, TU.u32(qhi).to(cuda),
                            TU.u32(qlo).to(cuda),
                            torch.from_numpy(qmask).to(cuda), 3, 20)
+    torch.cuda.synchronize()
+    assert KP.launches == before + 1
     p = TBL.bloom_contains(cp.b_bloom, TU.u32(qhi), TU.u32(qlo),
                            torch.from_numpy(qmask), 3, 20)
     assert torch.equal(g.cpu(), p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,shard_bits", [(32_768, 0), (573_440, 0),
+                                          (100_000, 2)])
+def test_contains_codes_on_card(cuda, n, shard_bits):
+    """B1 == its plain version on the card, one launch per call, on the
+    walk's [4, n] frame with its [n] mask broadcast (no copy)."""
+    rng = np.random.default_rng(n + shard_bits)
+    words = CK.words_from_numpy(rng.integers(0, 1 << 32, 1 << 20,
+                                             dtype=np.uint64), cuda)
+    hi, lo = _keys(rng, 4 * n)
+    khi, klo = TU.u32(hi, cuda).view(4, n), TU.u32(lo, cuda).view(4, n)
+    m = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    before = KP.launches
+    got = KP.bloom_contains_codes(words, khi, klo, m, 3, 25, shard_bits)
+    want = KP.bloom_contains_codes_plain(words, khi, klo, m, 3, 25,
+                                         shard_bits)
+    torch.cuda.synchronize()
+    assert KP.launches == before + 1
+    assert torch.equal(got, want) and bool(want.any()) and \
+        not bool(want.all())
     with pytest.raises(ValueError):
-        KP.bloom_probe_keys(cg.b_bloom.words, TU.u32(qhi).to(cuda).int(),
-                            TU.u32(qhi).to(cuda), TU.u32(qhi).to(cuda), 3)
+        KP.bloom_contains_codes(words, khi.int(), klo, m, 3, 25)
+    with pytest.raises(ValueError):
+        KP.bloom_contains_codes(words, khi, klo, m, 3, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "mostly_masked", "hot_dups",
+                                  "dead_hi"])
+def test_cascade_insert_on_card(cuda, case):
+    """B2-B4 == cascade_insert_plain bit for bit on the card (filter
+    words, new_b, solid) at the load's shape and filter sizes, one wrapper
+    launch per call, over two batches; the scratch table is left clean."""
+    rng = np.random.default_rng(7)
+    n, la, lb = 573_440, 24, 22
+    hi, lo, mask = _cascade_batch(rng, n, case)
+    a = torch.zeros((1 << (la - 5),), dtype=torch.int32, device=cuda)
+    b = torch.zeros((1 << (lb - 5),), dtype=torch.int32, device=cuda)
+    ap, bp = a.clone(), b.clone()
+    new_b = []
+    for _ in range(2):
+        args = (TU.u32(hi, cuda), TU.u32(lo, cuda),
+                torch.from_numpy(mask).to(cuda), la, lb, 0, 4, 3)
+        before = KC.launches
+        nb, sol = KC.cascade_insert(a, b, *args)
+        nbp, solp = KC.cascade_insert_plain(ap, bp, *args)
+        torch.cuda.synchronize()
+        assert KC.launches == before + 1
+        assert torch.equal(a, ap) and torch.equal(b, bp)
+        assert torch.equal(nb, nbp) and torch.equal(sol, solp)
+        new_b.append(bool(nb.any()))
+        hi, lo, mask = hi[::-1].copy(), lo[::-1].copy(), mask[::-1].copy()
+    assert new_b[0] and bool(sol.any())
+    assert bool((KC._tables[(a.device, KC.n_slots_for(n))] == -1).all())
+    with pytest.raises(ValueError):
+        KC.cascade_insert(a, b, *args[:3], la - 1, lb, 0, 4, 3)
 
 
 @pytest.mark.cuda

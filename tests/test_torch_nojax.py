@@ -1,13 +1,20 @@
-"""faucet_tpu_torch runs where jax is not installed (the GPU machine).
+"""faucet_tpu_torch runs where jax is not installed (the GPU machine), and
+imports nothing of faucet_tpu.
 
-A subprocess blocks jax and jaxlib with a sys.meta_path finder, imports
-every module of the package and chip_smoke.py, and assembles a small
-genome on the CPU: any import of jax, direct or through faucet_tpu, fails.
+A subprocess blocks jax, jaxlib and the faucet_tpu package with a
+sys.meta_path finder, imports every module of the port and chip_smoke.py,
+and assembles a small genome on the CPU: any import of jax or of
+faucet_tpu fails. A scan of the sources rejects import lines of either.
 """
+import dataclasses
 import os
+import re
 import subprocess
 import sys
 
+import pytest
+
+_BANNED = re.compile(r"(from|import)\s+(jax|jaxlib|faucet_tpu)(\.|\s|,|$)")
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r'''
@@ -15,12 +22,13 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "faucet_tpu"):
             raise ImportError(f"blocked: {name}")
         return None
 
 sys.meta_path.insert(0, Block())
-for m in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+for m in [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "faucet_tpu")]:
     del sys.modules[m]
 
 import torch
@@ -34,7 +42,7 @@ for n in names:
 importlib.import_module("chip_smoke")
 
 import numpy as np
-from faucet_tpu.config import Config
+from faucet_tpu_torch import Config
 from faucet_tpu_torch import simulate
 from faucet_tpu_torch.pipeline import Pipeline
 
@@ -76,7 +84,8 @@ state = SC.compact_rounds(mask, 8, 3, (torch.arange(50),),
                           lambda s, cm, ps: s + ps[0][cm].sum(), 0,
                           KCP.mask_indices_plain)
 assert int(state) == int(torch.arange(50)[mask].sum())
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "faucet_tpu")
+               for m in sys.modules)
 print("OK", len(names))
 '''
 
@@ -91,15 +100,43 @@ def test_port_imports_and_runs_without_jax():
     assert int(r.stdout.split()[1]) >= 20  # every module was walked
 
 
-def test_no_jax_import_in_sources():
+def test_no_jax_or_faucet_tpu_import_in_sources():
     pkg = os.path.join(_REPO, "faucet_tpu_torch")
-    hits = []
+    paths = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, files in os.walk(pkg):
-        for f in files:
-            if f.endswith(".py"):
-                p = os.path.join(root, f)
-                for i, line in enumerate(open(p), 1):
-                    s = line.strip()
-                    if s.startswith(("import jax", "from jax")):
-                        hits.append(f"{p}:{i}")
-    assert not hits, hits
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    hits = []
+    for p in paths:
+        for i, line in enumerate(open(p), 1):
+            if _BANNED.match(line.strip()):
+                hits.append(f"{p}:{i}")
+    assert len(paths) >= 20 and not hits, hits
+
+
+_CFG_CASES = [
+    dict(size_kmer=31),
+    dict(size_kmer=21, estimated_kmers=1 << 20, singletons=1 << 22,
+         fp_rate=0.002, paired_ends=True),
+    dict(size_kmer=27, junction_detect="ext8", two_hash=True),
+    dict(size_kmer=31, exact=True, n_shards=2),
+]
+
+
+@pytest.mark.parametrize("kw", _CFG_CASES)
+def test_config_copy_and_checkpoint_hash_match_the_reference(kw):
+    """The port's Config (a copy) derives the same values as the
+    reference's from the same arguments, and the checkpoint guard hashes
+    both alike, so checkpoints keep loading both ways."""
+    from faucet_tpu.ckpt.state import _cfg_hash as jhash
+    from faucet_tpu.config import Config as JConfig
+    from faucet_tpu_torch import Config as TConfig
+    from faucet_tpu_torch.ckpt.state import _cfg_hash as thash
+
+    jc, tc = JConfig(**kw), TConfig(**kw)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    for name in ("n_hash_a", "n_hash_b", "bloom_a_bits", "bloom_b_bits",
+                 "use_node_junctions", "junction_cap", "sink_cap"):
+        assert getattr(tc, name) == getattr(jc, name), name
+    assert thash(tc) == thash(jc) == jhash(jc) == jhash(tc)
+    assert dataclasses.asdict(tc.node_view()) == \
+        dataclasses.asdict(jc.node_view())

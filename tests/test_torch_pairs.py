@@ -17,13 +17,14 @@ import jax.numpy as jnp
 
 from faucet_tpu import cli as jcli
 from faucet_tpu import simulate
-from faucet_tpu.config import Config
+from faucet_tpu.config import Config as JConfig
 from faucet_tpu.core import scan as JSC
 from faucet_tpu.core import table as JT
 from faucet_tpu.core.kmer import revcomp_seq
 from faucet_tpu.pipeline import Pipeline as JPipeline
 from faucet_tpu_torch import cli as tcli
 from faucet_tpu_torch.ckpt import state as CK
+from faucet_tpu_torch.config import Config as TConfig
 from faucet_tpu_torch.core import scan as TSC
 from faucet_tpu_torch.core import table as TT
 from faucet_tpu_torch.core import u32x2 as TU
@@ -55,13 +56,15 @@ def phased_case():
     return interleaved, truths, wrongs
 
 
-def _cfg(**kw):
+def _cfg(cls=TConfig, **kw):
+    """A Config of either package (the port's by default), from the same
+    arguments."""
     base = dict(size_kmer=K, max_read_length=80, batch_reads=128,
                 estimated_kmers=1 << 15, singletons=1 << 15,
                 junction_capacity=1 << 13, sink_capacity=1 << 14,
                 pair_capacity=1 << 14, paired_ends=True)
     base.update(kw)
-    return Config(**base)
+    return cls(**base)
 
 
 def _phasing(g, truths, wrongs):
@@ -190,7 +193,7 @@ def phased_runs(phased_case):
     mode), built and cleaned."""
     reads = phased_case[0]
     out = {}
-    for name, p in (("j", JPipeline(_cfg())),
+    for name, p in (("j", JPipeline(_cfg(JConfig))),
                     ("t", TPipeline(_cfg(), device="cpu"))):
         p.load_reads(reads)
         p.scan_paired(reads)
@@ -224,7 +227,7 @@ def test_paired_streaming_identical(phased_case):
     """Single-pass paired stream (mate batches inserted, then
     pair-scanned): identical contigs and pair counts."""
     reads = phased_case[0]
-    jp, tp = JPipeline(_cfg()), TPipeline(_cfg(), device="cpu")
+    jp, tp = JPipeline(_cfg(JConfig)), TPipeline(_cfg(), device="cpu")
     jg, tg = jp.run_streaming(reads), tp.run_streaming(reads)
     assert _contigs(tg) == _contigs(jg)
     assert tp.pair_counts() == jp.pair_counts()

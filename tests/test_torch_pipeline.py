@@ -11,9 +11,10 @@ import torch
 
 from faucet_tpu import cli as jcli
 from faucet_tpu import simulate
-from faucet_tpu.config import Config
+from faucet_tpu.config import Config as JConfig
 from faucet_tpu.pipeline import Pipeline as JPipeline
 from faucet_tpu_torch import cli as tcli
+from faucet_tpu_torch.config import Config as TConfig
 from faucet_tpu_torch.pipeline import Pipeline as TPipeline
 
 # the suite runs in several worker processes on few cores: one torch
@@ -23,13 +24,15 @@ torch.set_num_threads(1)
 K = 21
 
 
-def _cfg(**kw):
+def _cfg(cls=TConfig, **kw):
+    """A Config of either package (the port's by default), from the same
+    arguments."""
     base = dict(size_kmer=K, max_read_length=100, batch_reads=64,
                 estimated_kmers=1 << 14, singletons=1 << 14,
                 junction_capacity=1 << 13, sink_capacity=1 << 13,
                 fp_rate=0.002)
     base.update(kw)
-    return Config(**base)
+    return cls(**base)
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +54,7 @@ def _contigs(g):
 @pytest.mark.parametrize("mode", ["file", "stream"])
 def test_pipeline_identical_contigs(repeat_case, mode):
     genome, reads = repeat_case
-    jp, tp = JPipeline(_cfg()), TPipeline(_cfg(), device="cpu")
+    jp, tp = JPipeline(_cfg(JConfig)), TPipeline(_cfg(), device="cpu")
     if mode == "file":
         jg, tg = jp.run_file_mode(reads, reads), tp.run_file_mode(reads,
                                                                   reads)
@@ -134,3 +137,30 @@ def test_unported_config_and_missing_card_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TPipeline(_cfg(), device="cuda")
+
+
+def test_native_reader_copy_builds_untracked(repeat_case, tmp_path):
+    """The port's copy of the native reader builds into the git-ignored
+    faucet_tpu_torch/_build/ (never beside its tracked source) and packs
+    a FASTA into the same batches as the Python reader."""
+    import os
+
+    from faucet_tpu_torch.io import native as NV
+    from faucet_tpu_torch.io.fastq import read_seqs
+    from faucet_tpu_torch.pipeline import batch_iter
+
+    reads = repeat_case[1][:300] + ["", "ACGTN" * 30]
+    fa = tmp_path / "r.fa"
+    simulate.write_fasta(str(fa), reads)
+    if not NV.available():
+        pytest.skip("no C++ compiler: the native reader is optional")
+    so = NV._so_path()
+    assert os.path.dirname(so).endswith(os.path.join("faucet_tpu_torch",
+                                                     "_build"))
+    cfg = _cfg(batch_reads=128)
+    got = list(NV.native_batch_iter(str(fa), False, 128, 100))
+    want = list(batch_iter(read_seqs(str(fa)), cfg))
+    assert len(got) == len(want) == 3
+    for (gb, gl), (wb, wl) in zip(got, want):
+        np.testing.assert_array_equal(gl, wl)
+        np.testing.assert_array_equal(gb, wb)

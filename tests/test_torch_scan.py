@@ -12,12 +12,13 @@ import pytest
 import torch
 
 from faucet_tpu import simulate
-from faucet_tpu.config import Config
+from faucet_tpu.config import Config as JConfig
 from faucet_tpu.core import bloom as JBL
 from faucet_tpu.core import scan as JSC
 from faucet_tpu.core import table as JT
 from faucet_tpu.core.kmer import pack_reads
 from faucet_tpu_torch.ckpt import state as CK
+from faucet_tpu_torch.config import Config as TConfig
 from faucet_tpu_torch.core import scan as TSC
 
 # the suite runs in several worker processes on few cores: one torch
@@ -29,13 +30,14 @@ _jload = jax.jit(JSC.load_batch_nodes_s, static_argnames=("cfg",))
 _jflush = jax.jit(JSC.spool_flush, static_argnames=("cfg",))
 
 
-def _cfg(**kw):
+def _cfgs(**kw):
+    """The reference's Config and the port's, from the same arguments."""
     base = dict(size_kmer=21, max_read_length=60, batch_reads=48,
                 estimated_kmers=1 << 12, singletons=1 << 12,
                 junction_capacity=1 << 10, sink_capacity=1 << 12,
                 fp_rate=0.01)
     base.update(kw)
-    return Config(**base)
+    return JConfig(**base), TConfig(**base)
 
 
 def _reads(coverage, err):
@@ -86,8 +88,9 @@ def _same_spool(ts, js):
 class _Both:
     """One state, held by both packages."""
 
-    def __init__(self, cfg):
-        self.cfg = cfg
+    def __init__(self, cfgs):
+        self.jcfg, self.cfg = cfgs
+        cfg = self.jcfg
         self.jc = JBL.make_cascade(cfg)
         self.jn = JBL.make_cascade(cfg.node_view())
         self.jj = JT.make(cfg.junction_cap,
@@ -105,24 +108,22 @@ class _Both:
         self.tp = CK.spool_from_numpy(self.jp)
 
     def load(self, bases, lens):
-        cfg = self.cfg
         self.jc, self.jn, _, jws = _jload(self.jc, self.jn,
                                           jnp.asarray(bases),
-                                          jnp.asarray(lens), cfg=cfg)
+                                          jnp.asarray(lens), cfg=self.jcfg)
         self.tc, self.tn, _, tws = TSC.load_batch_nodes_s(
             self.tc, self.tn, torch.from_numpy(bases),
-            torch.from_numpy(lens), cfg)
+            torch.from_numpy(lens), self.cfg)
         np.testing.assert_array_equal(tws.numpy(), np.asarray(jws))
         return jws, tws
 
     def scan(self, bases, lens, ws=(None, None)):
-        cfg = self.cfg
         jr = _jscan(self.jc, self.jj, self.js, jnp.asarray(bases),
-                    jnp.asarray(lens), cfg=cfg, node_cascade=self.jn,
+                    jnp.asarray(lens), cfg=self.jcfg, node_cascade=self.jn,
                     window_solid=ws[0], jspool=self.jp)
         tr = TSC.scan_batch(self.tc, self.tj, self.ts,
                             torch.from_numpy(bases),
-                            torch.from_numpy(lens), cfg,
+                            torch.from_numpy(lens), self.cfg,
                             node_cascade=self.tn, window_solid=ws[1],
                             jspool=self.tp)
         self.jj, self.js, self.jp = jr.junctions, jr.sinks, jr.jspool
@@ -132,7 +133,7 @@ class _Both:
         np.testing.assert_array_equal(tr.jm.numpy(), np.asarray(jr.jm))
 
     def flush(self):
-        self.jj, self.jp = _jflush(self.jj, self.jp, cfg=self.cfg)
+        self.jj, self.jp = _jflush(self.jj, self.jp, cfg=self.jcfg)
         self.tj, self.tp = TSC.spool_flush(self.tj, self.tp, self.cfg)
 
     def check(self):
@@ -145,11 +146,11 @@ class _Both:
 
 def test_two_pass_tables(reads):
     """Reference loads; both packages scan from the converted state."""
-    s = _Both(_cfg())
+    s = _Both(_cfgs())
     batches = _batches(reads, s.cfg)
     for bases, lens in batches:
         s.jc, s.jn, _ = JSC.load_batch_nodes(s.jc, s.jn, jnp.asarray(bases),
-                                             jnp.asarray(lens), s.cfg)
+                                             jnp.asarray(lens), s.jcfg)
     s.convert()
     for bases, lens in batches:
         s.scan(bases, lens)
@@ -165,10 +166,10 @@ def test_stream_tables(reads, monkeypatch, small_spool):
     solidity). Noisier reads in 1-read batches with a 16-lane cap fill a
     64-lane spool, which then flushes in the middle of the run."""
     if small_spool:
-        s = _Both(_cfg(batch_reads=1, scan_update_cap=16))
+        s = _Both(_cfgs(batch_reads=1, scan_update_cap=16))
         reads = _reads(20, 0.02)
     else:
-        s = _Both(_cfg())
+        s = _Both(_cfgs())
     flushes = []
     flush = TSC.spool_flush
     monkeypatch.setattr(TSC, "spool_flush",

@@ -8,11 +8,12 @@ import pytest
 import torch
 
 from faucet_tpu import simulate
-from faucet_tpu.config import Config
+from faucet_tpu.config import Config as JConfig
 from faucet_tpu.graph import build as JB
 from faucet_tpu.graph import walk as JW
 from faucet_tpu.pipeline import Pipeline as JPipeline
 from faucet_tpu_torch.ckpt import state as CK
+from faucet_tpu_torch.config import Config as TConfig
 from faucet_tpu_torch.core import table as TT
 from faucet_tpu_torch.core import u32x2 as TU
 from faucet_tpu_torch.graph import build as TB
@@ -28,20 +29,21 @@ K = 21
 @pytest.fixture(scope="module")
 def state():
     """A loaded+scanned reference pipeline (noisy reads, so walks meet
-    Bloom-fp branches) and its state converted to the port."""
+    Bloom-fp branches) and its state converted to the port, with each
+    package's Config made from the same arguments."""
     rng = np.random.default_rng(31)
     genome = simulate.genome_with_repeats(rng, 4000, n_repeats=2,
                                           repeat_len=200)
     reads = simulate.shred(rng, genome, coverage=30, read_len=100,
                            err_rate=0.01, circular=True)
-    cfg = Config(size_kmer=K, max_read_length=100, batch_reads=256,
-                 estimated_kmers=1 << 12, singletons=1 << 13,
-                 junction_capacity=1 << 12, sink_capacity=1 << 14,
-                 fp_rate=0.05)
-    p = JPipeline(cfg)
+    kw = dict(size_kmer=K, max_read_length=100, batch_reads=256,
+              estimated_kmers=1 << 12, singletons=1 << 13,
+              junction_capacity=1 << 12, sink_capacity=1 << 14, fp_rate=0.05)
+    jcfg = JConfig(**kw)
+    p = JPipeline(jcfg)
     p.load_reads(reads)
     p.scan_reads(reads)
-    return (cfg, p, CK.cascade_from_numpy(p.cascade),
+    return ((jcfg, TConfig(**kw)), p, CK.cascade_from_numpy(p.cascade),
             CK.table_from_numpy(p.junctions), CK.table_from_numpy(p.sinks))
 
 
@@ -79,26 +81,27 @@ def _same_frontier(tfr, jfr):
 
 
 def test_walk_round_and_resolver(state):
-    cfg, p, tc, tj, _ = state
+    (jcfg, cfg), p, tc, tj, _ = state
     hi, lo, dirs, forced = _seeds(p)
     jfr, tfr = _frontiers(hi, lo, dirs, forced, np.zeros(len(hi), bool))
     jround = jax.jit(JW.walk_round, static_argnames=("n_steps", "cfg"))
     jres = jax.jit(JW.resolve_ambiguous, static_argnames=("cfg",))
     judged = 0
     for _ in range(6):
-        jfr, jb = jround(p.cascade, p.junctions, jfr, n_steps=32, cfg=cfg)
+        jfr, jb = jround(p.cascade, p.junctions, jfr, n_steps=32,
+                         cfg=jcfg)
         tfr, tb = TW.walk_round(tc, tj, tfr, 32, cfg)  # table.lookup oracle
         np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
         _same_frontier(tfr, jfr)
         judged += int(((tfr.end_kind == TW.END_AMBIG) & ~tfr.active).sum())
-        jfr = jres(p.cascade, jfr, cfg=cfg)
+        jfr = jres(p.cascade, jfr, cfg=jcfg)
         tfr = TW.resolve_ambiguous(tc, tfr, cfg)
         _same_frontier(tfr, jfr)
     assert judged > 0  # the resolver had ambiguous lanes to judge
 
 
 def test_sorted_member_matches_lookup(state):
-    cfg, p, _, tj, _ = state
+    _, p, _, tj, _ = state
     jt = TB.extract_table(tj)
     keys = np.sort((jt["hi"].astype(np.uint64) << np.uint64(32))
                    | jt["lo"]).astype(np.int64)
@@ -112,7 +115,7 @@ def test_sorted_member_matches_lookup(state):
 
 
 def test_walk_waves_and_build(state):
-    cfg, p, tc, tj, ts = state
+    (jcfg, cfg), p, tc, tj, ts = state
     hi, lo, dirs, forced = _seeds(p)
     # pass-2 style seeds too: free choice, circles detected
     sk = JB.extract_table(p.sinks)
@@ -124,14 +127,14 @@ def test_walk_waves_and_build(state):
     circ = np.concatenate([np.zeros(len(hi), bool), np.ones(n2, bool)])
     jfr, tfr = _frontiers(hi2, lo2, dirs2, forced2, circ)
     jfr, jb, jr = JW.walk_waves(p.cascade, p.junctions, jfr, n_rounds=3,
-                                n_steps=48, cfg=cfg)
+                                n_steps=48, cfg=jcfg)
     tfr, tb, tr = TW.walk_waves(tc, tj, tfr, n_rounds=3, n_steps=48,
                                 cfg=cfg)
     assert int(jr) == tr
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     _same_frontier(tfr, jfr)
 
-    jg = JB.GraphBuilder(cfg, p.cascade, p.junctions, p.sinks).build()
+    jg = JB.GraphBuilder(jcfg, p.cascade, p.junctions, p.sinks).build()
     tg = TB.GraphBuilder(cfg, tc, tj, ts).build()
     end = lambda e: None if e is None else (e.node, e.slot)
     dump = lambda g: [(c.seq, c.cov, end(c.left), end(c.right), c.circular,
