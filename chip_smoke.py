@@ -11,9 +11,13 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               CUDA inputs at the main path's shapes: bit-identical, with
               median times (CUDA events) of the wrapper, the kernel alone
               and the plain version, the bound from the shapes and the
-              share of it achieved; the scatter-OR kernels' entry points
-              (no caller on the main path) driven and counted; beside B7,
-              torch.nonzero_static as a yardstick
+              share of it achieved; B7 also at its callers' shapes and
+              over 1,000 back-to-back calls of changing size (epoch
+              reuse), with torch.nonzero_static beside it as a yardstick
+  3b entries  the scatter-OR kernels' entry points (no caller on the main
+              path), core/bloom.bloom_insert and scatter_or_bits: timed,
+              then driven and counted, CUDA == CPU; they use only the API
+              that earlier trees share, so --root runs them there too
   4 parity    the port's Pipeline on ~50 kbp of repeat-genome reads, once
               on the CPU (plain versions) and once on CUDA (kernels):
               identical contigs, junction and sink tables
@@ -37,8 +41,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   9 counters  every main-path kernel launched in each of the scale,
               paired and stream paths (counts set to 0 just before each
               path and read just after it); device launches of one
-              membership query (must be 1) and one cascade insert (at
-              most 3), from torch.profiler after the timed phases
+              membership query, one compaction and one bloom_insert (1
+              each) and one cascade insert (at most 3), from
+              torch.profiler after the timed phases
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Details go to
@@ -59,8 +64,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 ROOT = REPO  # where faucet_tpu_torch is imported from (--root)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
-PHASES = ("device", "build", "kernels", "parity", "scale", "paired", "cli",
-          "stream", "counters")
+PHASES = ("device", "build", "kernels", "entries", "parity", "scale",
+          "paired", "cli", "stream", "counters")
 
 # bench/scale_r5_2mb.json: the reference's 2 Mbp assembly
 SCALE_MBP = 2.0
@@ -138,9 +143,17 @@ def genome_true_frac(contigs, genome: str) -> float:
     return good / max(tot, 1)
 
 
-def cuda_ms(fn, reps: int, setup=None) -> float:
+# cycles of torch.cuda._sleep queued ahead of a device-only timing (about
+# 1 ms at the H100's clock), so that the host has queued the timed
+# launches before the device reaches the first event
+SLEEP_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, reps: int, setup=None, device_only: bool = False) -> float:
     """Median milliseconds of fn() over reps runs, CUDA events; setup()
-    runs before each rep outside the timed region."""
+    runs before each rep outside the timed region. device_only: the
+    device is held busy while the host queues the call, so the time is
+    the call's device time alone, not the host's pace."""
     import torch
 
     times = []
@@ -148,6 +161,8 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
         args = setup() if setup else ()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn(*args)
         b.record()
@@ -158,13 +173,15 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
 
 def launch_loop_ms(launch, reps: int = 50) -> float:
     """Device milliseconds per launch of a raw kernel launcher: reps
-    back-to-back launches between two CUDA events (a ctypes launch costs
-    the host a few us, so the device, not the host, sets the pace)."""
+    back-to-back launches between two CUDA events, queued behind a sleep
+    on the device, so the device, not the host's ctypes launches, sets
+    the pace."""
     import torch
 
     launch()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     a.record()
     for _ in range(reps):
         launch()
@@ -520,21 +537,21 @@ def _bits_set(gen, n_words, dev):
 
 
 def check_scatter(gen, dev, lib):
-    """scatter_or_keys (B5) at the file-mode batch, 573,440 keys (10% at
-    SENTINEL), into A (16 MB, n_hash 4) and B (4 MB, n_hash 3); then
-    scatter_or_bits (B6), 4 positions per key into 16 MB. Both equal their
-    plain versions bit for bit. Their entry points, core/bloom.bloom_insert
-    and scatter_or_bits itself (no caller in the repo), are driven once
-    each with the launch counts reset just before."""
+    """bloom_insert_codes (B5), hashing fused, at the file-mode batch,
+    573,440 codes (90% live), into A (16 MB, n_hash 4) and B (4 MB, n_hash
+    3) with an eighth of their bits set; then scatter_or_bits (B6), 4
+    positions per key into 16 MB. Both equal their plain versions bit for
+    bit. Each timed run starts from a fresh copy of the filter."""
     import torch
 
-    from faucet_tpu_torch.core import bloom as BL
     from faucet_tpu_torch.kernels import bloom_scatter as KS
     from faucet_tpu_torch.kernels import build as KB
+    from faucet_tpu_torch.kernels import probe as KP
 
     res, n = {}, 573_440
     hi, lo = _rand_keys(gen, n, dev)
     live = torch.rand((n,), generator=gen, device=dev) < 0.9
+    n_live = int(live.sum())
 
     def compare(tag, kernel, plain, w0, args, raw, cost):
         """cost(result) -> (bytes, operations) this input needs: each
@@ -544,9 +561,10 @@ def check_scatter(gen, dev, lib):
         err = int((got.long() - want.long()).abs().max())
         if err or torch.equal(got, w0):
             raise AssertionError(f"{tag}: kernel != plain (or no bit set)")
-        w = w0.clone()  # OR is idempotent: every launch does the same work
+        fresh = lambda: (w0.clone(),)
         rec = {"ms": cuda_ms(kernel, 20, setup=lambda: (w0.clone(), *args)),
-               "device_ms": launch_loop_ms(lambda: KB.check(raw(w), tag)),
+               "device_ms": cuda_ms(lambda w: KB.check(raw(w), tag), 20,
+                                    setup=fresh, device_only=True),
                "plain_ms": cuda_ms(plain, 10,
                                    setup=lambda: (w0.clone(), *args)),
                "library_ms": None, "max_abs_err": err, **bound(*cost(got))}
@@ -554,20 +572,19 @@ def check_scatter(gen, dev, lib):
         return rec
 
     for name, log2_bits, nh in (("A", 27, 4), ("B", 25, 3)):
-        block, h1r, h2 = BL._block_h1r_h2(hi, lo, log2_bits)
-        block = torch.where(live, block, KS.SENTINEL)
         w0 = _bits_set(gen, 1 << (log2_bits - 5), dev)
-        n_live = int(live.sum())
-        res[f"scatter_keys_{name}"] = compare(
-            f"scatter_or_keys {name} n_hash {nh}", KS.scatter_or_keys,
-            KS.scatter_or_keys_plain, w0, (block, h1r, h2, nh),
-            lambda w: lib.ft_scatter_or_keys(
-                w.data_ptr(), w.shape[0], block.data_ptr(), h1r.data_ptr(),
-                h2.data_ptr(), n, nh, KB.stream_of(w)),
-            lambda got: (8 * n + 16 * n_live + 64 * (
-                n_unique(block[live]) + int(
+        args = (hi, lo, live, nh, log2_bits)
+        raw = lambda w: lib.ft_bloom_insert_codes(
+            w.data_ptr(), w.shape[0], hi.data_ptr(), lo.data_ptr(),
+            live.data_ptr(), n, nh, log2_bits - 9, 0, KB.stream_of(w))
+        blocks, _, _ = KP._block_h1r_h2(hi[live], lo[live], log2_bits)
+        res[f"insert_codes_{name}"] = compare(
+            f"bloom_insert_codes {name} n_hash {nh}", KS.bloom_insert_codes,
+            KS.bloom_insert_codes_plain, w0, args, raw,
+            lambda got: (n + 16 * n_live + 64 * (
+                n_unique(blocks) + int(
                     (got != w0).view(-1, 16).any(1).sum())),
-                n_live * BIT_OPS * nh))
+                n_live * (HASH_OPS + BIT_OPS * nh)))
     w0 = _bits_set(gen, 1 << 22, dev)
     pos = torch.randint(0, 1 << 27, (4 * n,), generator=gen, device=dev)
     pos = torch.where(torch.rand((4 * n,), generator=gen, device=dev) < 0.9,
@@ -580,39 +597,29 @@ def check_scatter(gen, dev, lib):
         lambda got: (8 * 4 * n + 4 * (
             n_unique(pos[pos != KS.SENTINEL] >> 5)
             + int((got != w0).sum())), 0))
-
-    # the entry points, counted: bloom_insert on CUDA == on the CPU
-    KS.launches_keys = KS.launches_bits = 0
-    for log2_bits, nh in ((27, 4), (25, 3)):
-        bg = BL.make_bloom(log2_bits, dev)
-        bc = BL.make_bloom(log2_bits)
-        BL.bloom_insert(bg, hi, lo, live, nh, log2_bits)
-        BL.bloom_insert(bc, hi.cpu(), lo.cpu(), live.cpu(), nh, log2_bits)
-        if not torch.equal(bg.words.cpu(), bc.words):
-            raise AssertionError("bloom_insert: CUDA != CPU")
-    bits = KS.scatter_or_bits(w0.clone(), pos)
-    if not torch.equal(bits.cpu(), KS.scatter_or_bits(w0.cpu(), pos.cpu())):
-        raise AssertionError("scatter_or_bits: CUDA != CPU")
-    report["entry_launches"] = {"scatter_or_keys": KS.launches_keys,
-                                "scatter_or_bits": KS.launches_bits}
-    log(f"bloom_insert (A, B) and scatter_or_bits on CUDA == on the CPU; "
-        f"launches {report['entry_launches']}")
     return res
 
 
 def check_compact(gen, dev, lib):
-    """mask_indices (B7), cap 8192, against its plain version: the scan
+    """mask_indices (B7) against its plain version: cap 8,192 on the scan
     grid of one file-mode batch (573,440 lanes) at ~1.5% and ~30% live
-    (both counts above cap), and a spool flush (1,048,576 lanes, ~0.5%
-    live, count below cap). Beside it, as a yardstick only (the port never
-    calls it), torch.nonzero_static(mask, size=cap) plus the count."""
+    (both counts above cap) and on a spool flush (1,048,576 lanes, ~0.5%
+    live, count below cap); and the callers' shape, cap = N = 573,440
+    (upsert_rounds and the spool append take every live lane in one
+    call), at ~1.5% and ~30% live. Beside it, as a yardstick only (the
+    port never calls it), torch.nonzero_static(mask, size=cap) plus the
+    count. Then 1,000 back-to-back calls of changing size and alignment
+    with the epoch limit lowered so that it wraps, every 100th call held
+    to the plain version."""
     import torch
 
-    from faucet_tpu_torch.kernels import build as KB
     from faucet_tpu_torch.kernels import compact as KCP
 
-    res, cap = {}, 8192
-    for n, density in ((573_440, 0.015), (573_440, 0.3), (1_048_576, 0.005)):
+    res = {}
+    for n, density, cap in ((573_440, 0.015, 8192), (573_440, 0.3, 8192),
+                            (1_048_576, 0.005, 8192),
+                            (573_440, 0.015, 573_440),
+                            (573_440, 0.3, 573_440)):
         mask = torch.rand((n,), generator=gen, device=dev) < density
         idx, cnt = KCP.mask_indices(mask, cap)
         pidx, pcnt = KCP.mask_indices_plain(mask, cap)
@@ -621,17 +628,13 @@ def check_compact(gen, dev, lib):
         err = max(abs(int(cnt) - int(pcnt)),
                   int((idx[:m] - pidx[:m]).abs().max()) if m else 0)
         if err or int(pcnt) != int(mask.sum()):
-            raise AssertionError(f"mask_indices N={n} d={density}: "
-                                 "kernel != plain")
-        tot = torch.empty((), dtype=torch.int64, device=dev)
-        scratch = torch.empty((n,), dtype=torch.int64, device=dev)
-        rec = {"count": int(pcnt),
+            raise AssertionError(f"mask_indices N={n} d={density} cap={cap}"
+                                 ": kernel != plain")
+        out = torch.empty((cap + 1,), dtype=torch.int64, device=dev)
+        rec = {"count": int(pcnt), "cap": cap,
                "ms": cuda_ms(lambda: KCP.mask_indices(mask, cap), 20),
-               "device_ms": launch_loop_ms(lambda: KB.check(
-                   lib.ft_mask_indices(mask.data_ptr(), n, idx.data_ptr(),
-                                       cap, tot.data_ptr(),
-                                       scratch.data_ptr(),
-                                       KB.stream_of(mask)), "mask_indices")),
+               "device_ms": launch_loop_ms(
+                   lambda: KCP.launch(mask, out[:cap], out[cap])),
                "plain_ms": cuda_ms(lambda: KCP.mask_indices_plain(mask, cap),
                                    20),
                "max_abs_err": err, **bound(n + 8 * m + 8)}
@@ -649,8 +652,81 @@ def check_compact(gen, dev, lib):
         log(f"    library yardstick, nonzero_static + count: "
             + (f"{rec['library_ms'] * 1e3:.1f} us" if rec["library_ms"]
                is not None else rec["library_note"]))
-        res[f"compact_{n}_{density}"] = rec
+        res[f"compact_{n}_{density}_{cap}"] = rec
+
+    # epoch reuse: sizes and offsets change from call to call, nothing
+    # synchronises in between, and the epoch wraps every 300 calls
+    rng = np.random.default_rng(17)
+    base = torch.rand((1_100_000,), generator=gen, device=dev) < 0.2
+    limit, KCP.EPOCH_LIMIT = KCP.EPOCH_LIMIT, 300
+    kept = []
+    try:
+        for i in range(1000):
+            off = int(rng.integers(0, 32))
+            n = int(rng.choice([0, 1, 4095, 4097, 70_000, 573_440,
+                                1_048_576]))
+            mask = base[off:off + n]
+            got = KCP.mask_indices(mask, n)
+            if i % 100 == 99:
+                kept.append((mask, got))
+    finally:
+        KCP.EPOCH_LIMIT = limit
+    torch.cuda.synchronize()
+    for mask, (idx, cnt) in kept:
+        pidx, pcnt = KCP.mask_indices_plain(mask, mask.shape[0])
+        if int(cnt) != int(pcnt) or not torch.equal(idx[:int(cnt)],
+                                                    pidx[:int(cnt)]):
+            raise AssertionError("mask_indices: back-to-back run != plain")
+    res["compact_epoch_run"] = {"calls": 1000, "checked": len(kept),
+                                "max_abs_err": 0}
+    log(f"mask_indices: 1000 back-to-back calls (epoch wrapping every 300),"
+        f" {len(kept)} held to the plain version: identical")
     return res
+
+
+@phase("entries")
+def run_entries():
+    """The scatter-OR kernels' entry points, which no path calls:
+    core/bloom.bloom_insert (B5) into A (16 MB, n_hash 4) and B (4 MB,
+    n_hash 3), timed per call (CUDA events; on an earlier tree the same
+    call hashed in torch and then launched B5), then driven once each and
+    counted, CUDA == CPU; scatter_or_bits (B6) likewise."""
+    import torch
+
+    from faucet_tpu_torch.core import bloom as BL
+    from faucet_tpu_torch.kernels import bloom_scatter as KS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    n = 573_440
+    hi, lo = _rand_keys(gen, n, dev)
+    live = torch.rand((n,), generator=gen, device=dev) < 0.9
+    w0 = _bits_set(gen, 1 << 22, dev)
+    pos = torch.randint(0, 1 << 27, (4 * n,), generator=gen, device=dev)
+    rec = {}
+    for log2_bits, nh in ((27, 4), (25, 3)):
+        rec[f"bloom_insert_{log2_bits}_{nh}_ms"] = ms = cuda_ms(
+            lambda b: BL.bloom_insert(b, hi, lo, live, nh, log2_bits), 20,
+            setup=lambda: (BL.make_bloom(log2_bits, dev),))
+        log(f"bloom_insert 2**{log2_bits} bits, n_hash {nh}: {ms * 1e3:.1f} "
+            "us per call")
+    KS.launches_keys = KS.launches_bits = 0
+    for log2_bits, nh in ((27, 4), (25, 3)):
+        bg = BL.make_bloom(log2_bits, dev)
+        bc = BL.make_bloom(log2_bits)
+        BL.bloom_insert(bg, hi, lo, live, nh, log2_bits)
+        BL.bloom_insert(bc, hi.cpu(), lo.cpu(), live.cpu(), nh, log2_bits)
+        if not torch.equal(bg.words.cpu(), bc.words):
+            raise AssertionError("bloom_insert: CUDA != CPU")
+    bits = KS.scatter_or_bits(w0.clone(), pos)
+    if not torch.equal(bits.cpu(), KS.scatter_or_bits(w0.cpu(), pos.cpu())):
+        raise AssertionError("scatter_or_bits: CUDA != CPU")
+    report["entry_launches"] = {"bloom_insert_codes": KS.launches_keys,
+                                "scatter_or_bits": KS.launches_bits}
+    report["phases"]["entries"].update(rec)
+    log(f"bloom_insert (A, B) and scatter_or_bits on CUDA == on the CPU; "
+        f"launches {report['entry_launches']}")
 
 
 def _table_arrays(t):
@@ -1068,14 +1144,23 @@ def run_stream(n_batches: int = 16, warmup: int = 2, groups: int = 5,
                 lambda: [p.stream_step(b, n) for b, n in batches[-4:]]))
 
 
+# B7's wrapper calls on the scale / paired / stream paths when
+# upsert_rounds compacted once per round and the spool append sorted
+# instead (the earlier design's full smoke; PERF.md)
+COMPACT_CALLS_BEFORE = {"scale": 222, "paired": 614, "stream": 51}
+
+
 def launch_census():
     """Device launches of one call of each redesigned entry point at a
     main-path shape, from torch.profiler (after every timed phase): the
-    membership query on the walk's [4, 8192] frame, and the cascade insert
-    of a dense load batch into the 2 Mbp run's filters."""
+    membership query on the walk's [4, 8192] frame, the cascade insert of
+    a dense load batch into the 2 Mbp run's filters, the compaction of a
+    scan grid with every live lane taken (as upsert_rounds and the spool
+    append call it), and bloom_insert into the 16 MB filter."""
     import torch
 
     from faucet_tpu_torch.core import bloom as BL
+    from faucet_tpu_torch.kernels import compact as KCP
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -1090,13 +1175,26 @@ def launch_census():
     m = torch.rand((573_440,), generator=gen, device=dev) < 0.97
     n_cascade, rows_c = device_launches(
         lambda: BL.cascade_insert_nbs(c, hi, lo, m, cfg))
-    rec = {"cascade_solid": n_probe, "cascade_insert_nbs": n_cascade}
-    report["launch_census"] = dict(rec, rows={"cascade_solid": rows_p,
-                                              "cascade_insert_nbs": rows_c})
+    jm = torch.rand((573_440,), generator=gen, device=dev) < 0.015
+    n_compact, rows_m = device_launches(
+        lambda: KCP.mask_indices(jm, 573_440))
+    b = BL.make_bloom(27, dev)
+    n_insert, rows_i = device_launches(
+        lambda: BL.bloom_insert(b, hi, lo, m, 4, 27))
+    rec = {"cascade_solid": n_probe, "cascade_insert_nbs": n_cascade,
+           "mask_indices": n_compact, "bloom_insert": n_insert}
+    report["launch_census"] = dict(rec, rows={
+        "cascade_solid": rows_p, "cascade_insert_nbs": rows_c,
+        "mask_indices": rows_m, "bloom_insert": rows_i})
     log(f"[counters] device launches per call: {rec}")
-    for us, name, cnt in rows_p + rows_c:
+    for us, name, cnt in rows_p + rows_c + rows_m + rows_i:
         log(f"    {us:9.1f} us  x{cnt:<3} {name}")
-    if n_probe != 1 or n_cascade > 3:
+    by_path = report["launches_by_path"]
+    log("[counters] mask_indices calls by path, this tree / per-round "
+        "compaction: "
+        + ", ".join(f"{p} {c['compact']} / {COMPACT_CALLS_BEFORE.get(p)}"
+                    for p, c in by_path.items()))
+    if n_probe != 1 or n_cascade > 3 or n_compact != 1 or n_insert != 1:
         raise AssertionError(f"device launches per call: {rec}")
 
 
@@ -1105,6 +1203,7 @@ def kernel_line(launches):
     by_path = report["launches_by_path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
+    entries = ("bloom_insert_codes", "scatter_or_bits")
 
     def entry(name, source, replaces, key, rows, row):
         errs = [r["max_abs_err"] for r in rows]
@@ -1112,12 +1211,12 @@ def kernel_line(launches):
              "source": f"faucet_tpu_torch/csrc/{source}",
              "replaces": f"faucet_tpu/kernels/{replaces}",
              "launches": launches.get(key),
-             "launches_from": ("phase 3 entry points (no caller on any "
-                               "path)" if key.startswith("scatter")
+             "launches_from": ("the entries phase (no caller on any "
+                               "path)" if key in entries
                                else "the paired path (phase 6)"),
              "max_abs_err": max(errs) if errs else None,
              **{x: row.get(x) for x in keys}}
-        if not key.startswith("scatter"):
+        if key not in entries:
             e["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         return e
 
@@ -1131,14 +1230,14 @@ def kernel_line(launches):
         entry("cascade_insert", "cascade.cu", "cascade.py:470", "cascade",
               rows("cascade"),
               (k.get("cascade_dense_27_25_7_3") or [{}])[0]),
-        entry("scatter_or_keys", "bloom_scatter.cu", "bloom_scatter.py:124",
-              "scatter_or_keys", rows("scatter_keys"),
-              k.get("scatter_keys_A", {})),
+        entry("bloom_insert_codes", "bloom_scatter.cu",
+              "bloom_scatter.py:124", "bloom_insert_codes",
+              rows("insert_codes"), k.get("insert_codes_A", {})),
         entry("scatter_or_bits", "bloom_scatter.cu", "bloom_scatter.py:166",
               "scatter_or_bits", rows("scatter_bits"),
               k.get("scatter_bits", {})),
         entry("mask_indices", "compact.cu", "compact.py:56", "compact",
-              rows("compact"), k.get("compact_573440_0.015", {}))]}
+              rows("compact"), k.get("compact_573440_0.015_573440", {}))]}
 
 
 def main(argv=None) -> int:
@@ -1165,6 +1264,8 @@ def main(argv=None) -> int:
         run_build()
     if "kernels" in want:
         run_kernels()
+    if "entries" in want:
+        run_entries()
     if "parity" in want:
         run_parity()
 
@@ -1191,11 +1292,11 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{path}: a kernel was never launched: "
                                      f"{counts}")
     # this slice's path is the paired one; scatter-OR has no caller on
-    # any path: its entry points were driven, and counted, in phase 3
+    # any path: its entry points were driven, and counted, in phase 3b
     launches = dict(by_path.get("paired", {}))
     launches.update(report.get("entry_launches", {}))
-    log(f"[counters] paired path with the phase-3 entry points: {launches}")
-    if "counters" in want and "kernels" in want and "paired" in want and \
+    log(f"[counters] paired path with the entry points: {launches}")
+    if "counters" in want and "entries" in want and "paired" in want and \
             not all(launches.values()):
         raise AssertionError(f"a kernel was never launched: {launches}")
 

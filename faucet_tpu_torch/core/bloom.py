@@ -7,9 +7,9 @@ one block, bit j = (h1r + (j+1)*h2) & 511, so a probe is one 64-byte
 read. Membership, plain inserts and cascade inserts go through
 kernels/probe.py, kernels/bloom_scatter.py and kernels/cascade.py, which
 launch the CUDA kernels for CUDA tensors and take their plain torch
-versions for CPU tensors. Membership and cascade inserts take the codes
-themselves: their kernels hash in registers, one launch per membership
-query.
+versions for CPU tensors. All three take the codes themselves: their
+kernels hash in registers, one launch per membership query and per plain
+insert.
 
 Within a batch the cascade keeps the reference's sequential semantics by
 counting duplicate keys: a k-mer seen twice in one batch is solid.
@@ -26,8 +26,6 @@ from faucet_tpu_torch.kernels import cascade as CK
 from faucet_tpu_torch.kernels import probe as PK
 # the blocked addressing lives with the probe kernel's plain version
 from faucet_tpu_torch.kernels.probe import _block_h1r_h2
-
-SENTINEL = 0xFFFFFFFF
 
 
 class Bloom(NamedTuple):
@@ -51,14 +49,12 @@ def _block_and_bits(khi, klo, n_hash: int, log2_bits: int,
 def bloom_insert(b: Bloom, khi, klo, mask, n_hash: int,
                  log2_bits: int, shard_bits: int = 0) -> Bloom:
     """OR all probe bits of the masked keys into the filter (in place).
-    CUDA tensors launch the scatter-OR kernel (kernels/bloom_scatter.py),
-    CPU tensors take its plain version, as the reference's runs its
-    Pallas kernel off the CPU. The pipeline itself inserts only through
-    the cascade kernel."""
-    block, h1r, h2 = _block_h1r_h2(khi.reshape(-1), klo.reshape(-1),
-                                   log2_bits, shard_bits)
-    block = torch.where(mask.reshape(-1), block, SENTINEL)
-    SK.scatter_or_keys(b.words, block, h1r, h2, n_hash)
+    CUDA tensors take one launch of the scatter-OR kernel, hashing
+    included (kernels/bloom_scatter.py), CPU tensors its plain version,
+    as the reference's runs its Pallas kernel off the CPU. The pipeline
+    itself inserts only through the cascade kernel."""
+    SK.bloom_insert_codes(b.words, khi, klo, mask, n_hash, log2_bits,
+                          shard_bits)
     return b
 
 

@@ -98,28 +98,18 @@ def spool_flush(junctions: T.Table, spool: JSpool, cfg
     return junctions, spool._replace(cnt=0)
 
 
-def _compact_order(mask, K: int, total: int):
-    """Indices of the True lanes in lane order, padded with n to a whole
-    number of K-lane rounds (the reference's stable argsort)."""
-    n = mask.shape[0]
-    order = torch.argsort((~mask).to(torch.uint8), stable=True)
-    L = -(-total // K) * K
-    if L > n:
-        order = torch.cat([order, torch.full((L - n,), n,
-                                             dtype=order.dtype,
-                                             device=order.device)])
-    return order[:L]
-
-
 def _spool_append(junctions: T.Table, spool: JSpool, u: "ScanUpdates",
                   cfg) -> Tuple[T.Table, JSpool]:
     """Append this batch's junction lanes to the spool, flushing first
-    when they would not fit. Writes whole K-lane rounds from cnt on, the
-    lanes past the live ones EMPTY, exactly as the reference does."""
+    when they would not fit. One compaction (kernels/compact.py
+    mask_indices) gives the lanes and their count; the spool takes whole
+    K-lane rounds from cnt on, the lanes past the live ones EMPTY, exactly
+    as the reference's argsort rounds do."""
     jm = u.is_junc.reshape(-1)
     n = jm.shape[0]
-    total = int(jm.sum())
     K = min(n, cfg.scan_update_cap)
+    idx, cnt = CP.mask_indices(jm, _whole_rounds(n, K))
+    total = int(cnt)
     S = spool.khi.shape[0]
     if spool.cnt + total > S - K:
         junctions, spool = spool_flush(junctions, spool, cfg)
@@ -129,10 +119,10 @@ def _spool_append(junctions: T.Table, spool: JSpool, u: "ScanUpdates",
     sf = (flat(u.ex_slot) | (flat(u.en_slot) << 3)
           | (flat(u.exit_ok) << 6) | (flat(u.entry_ok) << 7))
     dd = (flat(u.ex_dist) & 0xFFFF) | ((flat(u.en_dist) & 0xFFFF) << 16)
-    take = _compact_order(jm, K, total)
-    live = torch.cat([jm, jm.new_zeros(1)])[take]
-    take = torch.clamp(take, max=n - 1)
-    off, L = spool.cnt, take.shape[0]
+    L = _whole_rounds(total, K)
+    live = torch.arange(L, device=jm.device) < total
+    take = torch.where(live, idx[:L], 0)
+    off = spool.cnt
     for dst, src, fill in ((spool.khi, flat(u.key_hi), EMPTY),
                            (spool.klo, flat(u.key_lo), EMPTY),
                            (spool.sf, sf, 0), (spool.dd, dd, 0)):
@@ -228,37 +218,37 @@ def cov_dist8(ex_slot, en_slot, ex_dist, en_dist, exit_ok, entry_ok):
     return cov8, dist8
 
 
-def compact_rounds(mask, K: int, rounds: int, payloads, fn, state,
-                   compact):
-    """The round loop of upsert_rounds: each round takes the first
-    min(count, K) remaining lanes that `compact(mask, K)` (the
-    kernels/compact.py mask_indices contract) returns, folds them, and
-    clears them before the next round. Round contents equal the
-    reference's stable-argsort rounds: both take live lanes K at a time
-    in lane order."""
-    n = mask.shape[0]
-    m = torch.cat([mask, mask.new_zeros(1)])  # lane n absorbs the clears
+def _whole_rounds(n: int, K: int) -> int:
+    """n rounded up to whole K-lane rounds."""
+    return -(-n // K) * K if n else 0
+
+
+def compact_rounds(mask, K: int, payloads, fn, state, compact):
+    """The round loop of upsert_rounds: ONE call of `compact` (the
+    kernels/compact.py mask_indices contract) lists the live lanes in lane
+    order and counts them (the one host sync); round r folds lanes
+    r*K .. r*K + K - 1 of that list. Round contents equal the reference's
+    stable-argsort rounds: both take live lanes K at a time in lane
+    order. Returns (state, live lanes)."""
+    idx, cnt = compact(mask, _whole_rounds(mask.shape[0], K))
+    total = int(cnt)
     slot = torch.arange(K, device=mask.device)
-    for _ in range(rounds):
-        idx, cnt = compact(m[:n], K)
-        cm = slot < torch.clamp(cnt, max=K)
-        take = torch.where(cm, idx, 0)
+    for r in range(-(-total // K) if total else 0):
+        take = idx[r * K:(r + 1) * K]
+        cm = slot < total - r * K
+        if total - r * K < K:
+            take = torch.where(cm, take, 0)  # slots past total: don't-care
         state = fn(state, cm, tuple(p[take] for p in payloads))
-        m[torch.where(cm, take, n)] = False
-    return state
+    return state, total
 
 
 def upsert_rounds(mask, K: int, payloads, fn, state):
     """Fold every True lane of a sparse update grid into `state`, K
-    compacted lanes per round, keeping lane order. The round count is
-    fetched to the host (one sync). Each round's lanes come from the
-    stream-compaction kernel (kernels/compact.py mask_indices; its plain
-    version on CPU tensors)."""
-    total = int(mask.sum())
-    if total == 0:
-        return state, total
-    return compact_rounds(mask, K, -(-total // K), payloads, fn, state,
-                          CP.mask_indices), total
+    compacted lanes per round, keeping lane order. The lanes come from one
+    launch of the stream-compaction kernel (kernels/compact.py
+    mask_indices, looked up at call time; its plain version on CPU
+    tensors); their count is fetched to the host (one sync)."""
+    return compact_rounds(mask, K, payloads, fn, state, CP.mask_indices)
 
 
 def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,

@@ -102,14 +102,13 @@ def library() -> ctypes.CDLL:
         lib.ft_cascade_insert.argtypes = [p, i64, p, i64, p, p, p, i64, i32,
                                           i32, i32, i32, i32, p, i64, p, p,
                                           p, p]
-        lib.ft_scatter_or_keys.restype = i32
-        lib.ft_scatter_or_keys.argtypes = [p, i64, p, p, p, i64, i32, p]
+        lib.ft_bloom_insert_codes.restype = i32
+        lib.ft_bloom_insert_codes.argtypes = [p, i64, p, p, p, i64, i32,
+                                              i32, i32, p]
         lib.ft_scatter_or_bits.restype = i32
         lib.ft_scatter_or_bits.argtypes = [p, i64, p, i64, p]
         lib.ft_mask_indices.restype = i32
-        lib.ft_mask_indices.argtypes = [p, i64, p, i64, p, p, p]
-        lib.ft_mask_indices_chunk.restype = i64
-        lib.ft_mask_indices_chunk.argtypes = []
+        lib.ft_mask_indices.argtypes = [p, i64, p, i64, p, p, i64, i32, p]
         lib.ft_error_string.restype = ctypes.c_char_p
         lib.ft_error_string.argtypes = [i32]
         _lib = lib

@@ -7,8 +7,12 @@ indices of the first min(count, cap) set lanes in lane order, and count
 lanes, which may exceed cap. Slots at or past min(count, cap) are
 don't-care, as in the reference; callers mask by arange(cap) < count.
 
-CUDA tensors launch the three-pass kernel of csrc/compact.cu, CPU tensors
-take the plain torch version; nothing falls back from one to the other.
+CUDA tensors launch the single-pass kernel of csrc/compact.cu (one launch,
+no host sync), CPU tensors take the plain torch version; nothing falls
+back from one to the other. The kernel's look-back scratch (a ticket
+counter and one status word per 4,096-lane tile) is kept across calls per
+device and stream and grows with the mask; every call bumps the scratch's
+epoch instead of clearing it. Two streams never share a scratch.
 """
 from __future__ import annotations
 
@@ -18,7 +22,14 @@ from faucet_tpu_torch.kernels import build as KB
 
 # kernel launches by mask_indices (reset and read by chip_smoke.py)
 launches = 0
-_chunk = None  # mask lanes per CUDA block (csrc/compact.cu FT_CP_CHUNK)
+
+TILE = 4096           # mask lanes per tile (csrc/compact.cu FT_CP_TILE)
+EPOCH_LIMIT = 1 << 30  # epochs are 30 bits in a status word
+MAX_LANES = (1 << 31) - 16
+
+# (device, stream) -> [int64[1 + tiles] scratch, epoch of the last call]
+_scratch = {}
+_fn = None  # the library's ft_mask_indices
 
 
 def mask_indices_plain(mask, cap: int):
@@ -31,25 +42,54 @@ def mask_indices_plain(mask, cap: int):
                              device=mask.device)
 
 
+def _epoch(device, stream: int, tiles: int):
+    """(scratch, epoch) for a call of `tiles` tiles: the scratch is zeroed
+    when it is made or grown, and when the epoch would wrap, so no status
+    word of an earlier call can carry this call's epoch."""
+    st = _scratch.get((device, stream))
+    if st is None or st[0].shape[0] - 1 < tiles:
+        st = [torch.zeros((1 + max(tiles, 256),), dtype=torch.int64,
+                          device=device), 0]
+        _scratch[(device, stream)] = st
+    st[1] += 1
+    if st[1] >= EPOCH_LIMIT:
+        st[0].zero_()
+        st[1] = 1
+    return st[0], st[1]
+
+
+def launch(mask, idx, total):
+    """One launch of the kernel into preallocated idx (int64[cap]) and
+    total (int64, one element); counts nothing (chip_smoke.py times the
+    kernel alone with it)."""
+    global _fn
+    if _fn is None:
+        _fn = KB.library().ft_mask_indices
+    n = mask.shape[0]
+    tiles = max(1, -(-(n + mask.data_ptr() % 16) // TILE))
+    stream = KB.stream_of(mask)
+    scratch, epoch = _epoch(mask.device, stream, tiles)
+    code = _fn(mask.data_ptr(), n, idx.data_ptr(), idx.shape[0],
+               total.data_ptr(), scratch.data_ptr(), scratch.shape[0] - 1,
+               epoch, stream)
+    if code:
+        # a launch that failed may leave the ticket counter set
+        del _scratch[(mask.device, stream)]
+        KB.check(code, "mask_indices")
+
+
 def mask_indices(mask, cap: int):
     """Indices of the True lanes of bool[N] `mask`, first `cap` in lane
     order, and the total count (no host sync)."""
-    global launches, _chunk
+    global launches
     if not mask.is_cuda:
         return mask_indices_plain(mask, cap)
     KB.require_cuda("mask", mask, torch.bool)
-    if cap < 0:
-        raise ValueError(f"cap must be >= 0, got {cap}")
-    lib = KB.library()
-    if _chunk is None:
-        _chunk = int(lib.ft_mask_indices_chunk())
-    n = mask.shape[0]
-    idx = torch.empty((cap,), dtype=torch.int64, device=mask.device)
-    total = torch.empty((), dtype=torch.int64, device=mask.device)
-    scratch = torch.empty((max(1, -(-n // _chunk)),), dtype=torch.int64,
-                          device=mask.device)
-    KB.check(lib.ft_mask_indices(mask.data_ptr(), n, idx.data_ptr(), cap,
-                                 total.data_ptr(), scratch.data_ptr(),
-                                 KB.stream_of(mask)), "mask_indices")
+    if cap < 0 or mask.shape[0] > MAX_LANES:
+        raise ValueError(f"cap {cap}, {mask.shape[0]} lanes: need cap >= 0 "
+                         f"and at most {MAX_LANES} lanes")
+    out = torch.empty((cap + 1,), dtype=torch.int64, device=mask.device)
+    idx, total = out[:cap], out[cap]
+    launch(mask, idx, total)
     launches += 1
     return idx, total

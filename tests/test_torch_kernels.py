@@ -294,7 +294,7 @@ def test_wrappers_take_plain_version_on_cpu():
     new_b, solid = KC.cascade_insert(w.clone(), w.clone(), k, k, m, 10, 10,
                                      0, 3, 3)
     assert not new_b.any() and not solid.any()
-    assert int(KS.scatter_or_keys(w.clone(), k + SENT, k, k, 3).abs().sum()) \
+    assert int(KS.bloom_insert_codes(w.clone(), k, k, m, 3, 10).abs().sum()) \
         == 0
     assert int(KS.scatter_or_bits(w.clone(), k + SENT).abs().sum()) == 0
     idx, cnt = KCP.mask_indices(torch.zeros(4, dtype=torch.bool), 2)
@@ -325,8 +325,34 @@ def test_scatter_or_keys_plain_vs_tpu_kernel(ref, rng, n_hash):
         jnp.asarray(words), jnp.asarray(block), jnp.asarray(h1r),
         jnp.asarray(h2), n_hash, tile_words=W // 2, key_chunk=512,
         interpret=True))
-    got = KS.scatter_or_keys(CK.words_from_numpy(words), TU.u32(block),
-                             TU.u32(h1r), TU.u32(h2), n_hash)
+    got = KS.scatter_or_keys_plain(CK.words_from_numpy(words), TU.u32(block),
+                                   TU.u32(h1r), TU.u32(h2), n_hash)
+    np.testing.assert_array_equal(CK.words_to_numpy(got), want)
+    assert (want != words).any()
+
+
+@pytest.mark.parametrize("shard_bits", [0, 1])
+@pytest.mark.parametrize("n_hash", [3, 4, 16])
+def test_bloom_insert_codes_plain_matches_reference(ref, rng, shard_bits,
+                                                    n_hash):
+    """bloom_insert_codes (plain) == the reference's bloom_insert (its CPU
+    sort formulation) bit for bit, into a filter with bits already set:
+    masked lanes, live codes whose hi word is 0xFFFFFFFF (inserted like
+    any other: only the cascade treats them as dead) and duplicate keys."""
+    jnp, JBL = ref.jnp, ref.BL
+    log2_bits, n = 18, 3000
+    words = _filter(rng, 1 << (log2_bits - 5))
+    hi, lo = _dup(*_keys(rng, n))
+    hi[::7] = SENT
+    mask = rng.random(n) < 0.8
+    want = np.asarray(JBL.bloom_insert(
+        JBL.Bloom(jnp.asarray(words)), jnp.asarray(hi), jnp.asarray(lo),
+        jnp.asarray(mask), n_hash, log2_bits, shard_bits).words)
+    before = KS.launches_keys
+    got = KS.bloom_insert_codes(CK.words_from_numpy(words), TU.u32(hi),
+                                TU.u32(lo), torch.from_numpy(mask), n_hash,
+                                log2_bits, shard_bits)
+    assert KS.launches_keys == before  # CPU tensors take the plain version
     np.testing.assert_array_equal(CK.words_to_numpy(got), want)
     assert (want != words).any()
 
@@ -469,24 +495,29 @@ def test_cascade_insert_on_card(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log2_bits,n_hash", [(22, 3), (24, 4)])
+@pytest.mark.parametrize("log2_bits,n_hash", [(25, 3), (27, 4)])
 def test_scatter_kernels_on_card(cuda, log2_bits, n_hash):
-    """B5 and B6 == their plain versions bit for bit on the card, at the
-    main path's filter sizes (B 4 MB / A 16 MB), and bloom_insert on CUDA
-    == on the CPU."""
+    """B5 (bloom_insert_codes, one launch, hashing in the kernel) and B6 ==
+    their plain versions bit for bit on the card, at the 2 Mbp run's
+    filter sizes (B 4 MB / A 16 MB), into a filter with bits already set
+    and again into the result (every bit already set); bloom_insert on
+    CUDA == on the CPU."""
     rng = np.random.default_rng(99)
     W, n = 1 << (log2_bits - 5), 573_440
     words = CK.words_from_numpy(_filter(rng, W), cuda)
-    block = TU.u32(rng.integers(0, W // 16, n), cuda)
-    block[::9] = SENT
-    h1r = TU.u32(rng.integers(0, 1 << 32, n, dtype=np.uint64), cuda)
-    h2 = TU.u32(rng.integers(0, 1 << 32, n, dtype=np.uint64) | 1, cuda)
-    before = KS.launches_keys
-    got = KS.scatter_or_keys(words.clone(), block, h1r, h2, n_hash)
-    want = KS.scatter_or_keys_plain(words.clone(), block, h1r, h2, n_hash)
-    torch.cuda.synchronize()
-    assert KS.launches_keys == before + 1
-    assert torch.equal(got, want)
+    hi, lo = _dup(*_keys(rng, n))
+    hi[::11] = SENT
+    args = (TU.u32(hi, cuda), TU.u32(lo, cuda),
+            torch.from_numpy(rng.random(n) < 0.9).to(cuda), n_hash,
+            log2_bits)
+    for _ in range(2):
+        before = KS.launches_keys
+        got = KS.bloom_insert_codes(words.clone(), *args)
+        want = KS.bloom_insert_codes_plain(words.clone(), *args)
+        torch.cuda.synchronize()
+        assert KS.launches_keys == before + 1
+        assert torch.equal(got, want)
+        words = got
     pos = TU.u32(rng.integers(0, W * 32, 4 * n), cuda)
     pos[::7] = SENT
     before = KS.launches_bits
@@ -495,47 +526,85 @@ def test_scatter_kernels_on_card(cuda, log2_bits, n_hash):
     torch.cuda.synchronize()
     assert KS.launches_bits == before + 1
     assert torch.equal(got, want)
-    hi, lo = _keys(rng, n)
-    mask = rng.random(n) < 0.9
     bg, bc = TBL.make_bloom(log2_bits, cuda), TBL.make_bloom(log2_bits)
-    TBL.bloom_insert(bg, TU.u32(hi, cuda), TU.u32(lo, cuda),
-                     torch.from_numpy(mask).to(cuda), n_hash, log2_bits)
-    TBL.bloom_insert(bc, TU.u32(hi), TU.u32(lo), torch.from_numpy(mask),
-                     n_hash, log2_bits)
+    TBL.bloom_insert(bg, *args)
+    TBL.bloom_insert(bc, *(a.cpu() for a in args[:3]), n_hash, log2_bits)
     assert torch.equal(bg.words.cpu(), bc.words)
     with pytest.raises(ValueError):
-        KS.scatter_or_keys(words, block.int(), h1r, h2, n_hash)
+        KS.bloom_insert_codes(words, args[0].int(), *args[1:])
+    with pytest.raises(ValueError):
+        KS.bloom_insert_codes(words, *args[:4], log2_bits - 1)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1000, 573_440, 1_048_576])
+@pytest.mark.parametrize("cap", ["0", "8192", "N"])
 @pytest.mark.parametrize("density", [0.0, 0.015, 0.3, 1.0])
-def test_mask_indices_on_card(cuda, n, density):
-    """B7 == its plain version on the card: the first min(count, cap)
-    indices and the count; counts above cap included."""
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 573_440, 1_048_576,
+                               4_194_304])
+def test_mask_indices_on_card(cuda, n, density, cap):
+    """B7 == its plain version on the card, one launch per call: the
+    first min(count, cap) indices and the count (above cap, below it, cap
+    0 and cap N), at tile edges (4,096 lanes per tile) and on a view that
+    starts off the 16-byte grid."""
+    cap = n if cap == "N" else int(cap)
     rng = np.random.default_rng(n + int(density * 1000))
-    mask = torch.from_numpy(rng.random(n) < density).to(cuda)
-    before = KCP.launches
-    idx, cnt = KCP.mask_indices(mask, 8192)
-    pidx, pcnt = KCP.mask_indices_plain(mask, 8192)
-    torch.cuda.synchronize()
-    assert KCP.launches == before + 1
-    assert int(cnt) == int(pcnt) == int(mask.sum())
-    m = min(int(cnt), 8192)
-    assert torch.equal(idx[:m], pidx[:m])
+    base = torch.from_numpy(rng.random(n + 5) < density).to(cuda)
+    for mask in (base[:n], base[5:]):
+        before = KCP.launches
+        idx, cnt = KCP.mask_indices(mask, cap)
+        pidx, pcnt = KCP.mask_indices_plain(mask, cap)
+        torch.cuda.synchronize()
+        assert KCP.launches == before + 1
+        assert idx.shape == (cap,)
+        assert int(cnt) == int(pcnt) == int(mask.sum())
+        m = min(int(cnt), cap)
+        assert torch.equal(idx[:m], pidx[:m])
 
 
 @pytest.mark.cuda
-def test_upsert_rounds_kernel_branch_on_card(cuda):
-    """upsert_rounds on the card (one compaction launch per round) folds
-    into the same table as on the CPU (plain compaction), over several
-    rounds."""
+def test_mask_indices_back_to_back_on_card(cuda, monkeypatch):
+    """200 calls of mixed sizes and alignments, none synchronised, each
+    held to its plain version afterwards: the look-back scratch is reused
+    by every call and its epoch wraps on the way (so a status word of an
+    earlier call never reads as ready)."""
+    rng = np.random.default_rng(2024)
+    monkeypatch.setattr(KCP, "EPOCH_LIMIT", 64)
+    base = torch.from_numpy(rng.random(1_100_000) < 0.2).to(cuda)
+    calls = []
+    for _ in range(200):
+        off = int(rng.integers(0, 32))
+        n = int(rng.choice([0, 1, 4095, 4097, 50_000, 573_440, 1_048_576]))
+        mask = base[off:off + n]
+        calls.append((mask, KCP.mask_indices(mask, n)))
+    torch.cuda.synchronize()
+    for mask, (idx, cnt) in calls:
+        pidx, pcnt = KCP.mask_indices_plain(mask, mask.shape[0])
+        assert int(cnt) == int(pcnt)
+        assert torch.equal(idx[:int(cnt)], pidx[:int(cnt)])
+
+
+def _scan_on_both(fn):
+    """fn(device) on the CPU (plain compaction) and on the card (kernel),
+    counting compaction launches."""
+    out = []
+    for dev in ("cpu", torch.device("cuda")):
+        before = KCP.launches
+        out.append((fn(dev), KCP.launches - before))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.3])
+def test_upsert_rounds_kernel_branch_on_card(cuda, density):
+    """upsert_rounds on the card (one compaction launch per call, sliced
+    into rounds) folds into the same table as on the CPU (plain
+    compaction), over several rounds."""
     from faucet_tpu_torch.core import scan as TSC
     from faucet_tpu_torch.core import table as TT
 
     rng = np.random.default_rng(5)
     n = 573_440
-    mask = torch.from_numpy(rng.random(n) < 0.03)
+    mask = torch.from_numpy(rng.random(n) < density)
     hi = TU.u32(rng.integers(0, 1 << 30, n))
     lo = TU.u32(rng.integers(0, 1 << 32, n, dtype=np.uint64))
     val = torch.ones((n,), dtype=torch.int32)
@@ -543,16 +612,48 @@ def test_upsert_rounds_kernel_branch_on_card(cuda):
     def fn(tbl, cm, ps):
         return TT.upsert(tbl, ps[0], ps[1], (ps[2],), cm, modes=("add",))
 
-    tables = []
-    for dev in ("cpu", cuda):
-        before = KCP.launches
-        t, total = TSC.upsert_rounds(
-            mask.to(dev), 8192, tuple(x.to(dev) for x in (hi, lo, val)), fn,
-            TT.make(1 << 16, (((), torch.int32),), device=dev))
-        rounds = KCP.launches - before
-        assert rounds == (0 if dev == "cpu" else -(-total // 8192))
-        tables.append(CK.table_to_numpy(t))
-    a, b = tables
+    (a, na), (b, nb) = _scan_on_both(lambda dev: TSC.upsert_rounds(
+        mask.to(dev), 8192, tuple(x.to(dev) for x in (hi, lo, val)), fn,
+        TT.make(1 << 19, (((), torch.int32),), device=dev)))
+    assert (na, nb) == (0, 1) and a[1] == b[1] == int(mask.sum())
+    a, b = CK.table_to_numpy(a[0]), CK.table_to_numpy(b[0])
     for f in ("keys_hi", "keys_lo", "count", "dropped"):
         np.testing.assert_array_equal(a[f], b[f])
     np.testing.assert_array_equal(a["vals"][0], b["vals"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_junc", [0, 8192, 16_385])
+def test_spool_append_on_card(cuda, n_junc):
+    """_spool_append on the card (one compaction launch) == on the CPU:
+    the spool's four arrays and its count, after two appends of a
+    file-mode batch grid (8,192 x 70 lanes, K 8,192)."""
+    from faucet_tpu_torch.core import scan as TSC
+
+    cfg = TConfig(size_kmer=31, max_read_length=100, batch_reads=8192)
+    B, P = cfg.batch_reads, cfg.positions_per_read
+    rng = np.random.default_rng(n_junc)
+    fields = []
+    for _ in range(2):
+        is_junc = np.zeros(B * P, bool)
+        is_junc[rng.choice(B * P, n_junc, replace=False)] = True
+        ints = lambda hi: rng.integers(0, hi, (B, P))
+        fields.append(dict(
+            is_junc=is_junc.reshape(B, P), ex_slot=ints(8), en_slot=ints(8),
+            ex_dist=ints(70), en_dist=ints(70),
+            exit_ok=rng.random((B, P)) < 0.5,
+            entry_ok=rng.random((B, P)) < 0.5, key_hi=ints(1 << 30),
+            key_lo=rng.integers(0, 1 << 32, (B, P), dtype=np.int64)))
+
+    def run(dev):
+        sp = TSC.make_jspool(cfg, dev)
+        for f in fields:
+            u = types.SimpleNamespace(**{k: torch.from_numpy(v).to(dev)
+                                         for k, v in f.items()})
+            _, sp = TSC._spool_append(None, sp, u, cfg)
+        return sp
+
+    (a, na), (b, nb) = _scan_on_both(run)
+    assert (na, nb) == (0, 2) and a.cnt == b.cnt == 2 * n_junc
+    for f in ("khi", "klo", "sf", "dd"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu())

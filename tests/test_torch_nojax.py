@@ -75,15 +75,15 @@ from faucet_tpu_torch.kernels import bloom_scatter as KS
 from faucet_tpu_torch.kernels import compact as KCP
 w = torch.zeros(64, dtype=torch.int32)
 ks = torch.tensor([0, 3, 0xFFFFFFFF])
-assert KS.scatter_or_keys(w, ks, ks + 5, ks | 1, 3).any()
+assert KS.bloom_insert_codes(w, ks, ks + 5, ks >= 0, 3, 11).any()
 assert KS.scatter_or_bits(w.clone().zero_(), ks).sum() != 0
 mask = torch.arange(50) % 3 == 0
 idx, cnt = KCP.mask_indices(mask, 8)
 assert int(cnt) == 17 and idx.tolist() == list(range(0, 24, 3))
-state = SC.compact_rounds(mask, 8, 3, (torch.arange(50),),
-                          lambda s, cm, ps: s + ps[0][cm].sum(), 0,
-                          KCP.mask_indices_plain)
-assert int(state) == int(torch.arange(50)[mask].sum())
+state, total = SC.compact_rounds(mask, 8, (torch.arange(50),),
+                                 lambda s, cm, ps: s + ps[0][cm].sum(), 0,
+                                 KCP.mask_indices_plain)
+assert total == 17 and int(state) == int(torch.arange(50)[mask].sum())
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "faucet_tpu")
                for m in sys.modules)
 print("OK", len(names))

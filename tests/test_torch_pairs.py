@@ -132,15 +132,21 @@ def test_capture_pairs_matches_reference_above_chunk():
 # ---- kernel branch of upsert_rounds -----------------------------------------
 
 
-@pytest.mark.parametrize("density", [0.0, 0.12, 1.0])
-def test_compact_rounds_match_argsort_branch(density):
-    """The port's upsert_rounds (the compaction round loop, here with the
-    plain compaction) folds the same rounds as the reference's argsort
-    branch: an order-sensitive fold and a real table upsert agree
-    exactly."""
+@pytest.mark.parametrize("live", [0.0, 0.12, 1.0, 100, 256, 3 * 256 + 1])
+def test_compact_rounds_match_argsort_branch(live):
+    """The port's upsert_rounds (one compaction, sliced into rounds; here
+    with the plain compaction) folds the same rounds as the reference's
+    argsort branch: an order-sensitive fold and a real table upsert agree
+    exactly. `live` is a density (0: no round; 1.0: every lane live) or
+    a count of live lanes: fewer than K, exactly K, a multiple of K plus
+    one."""
     rng = np.random.default_rng(3)
     n, K_ = 8192, 256
-    mask_np = rng.random(n) < density
+    if isinstance(live, float):
+        mask_np = rng.random(n) < live
+    else:
+        mask_np = np.zeros(n, bool)
+        mask_np[rng.choice(n, live, replace=False)] = True
     hi_np = rng.integers(0, 1 << 30, n).astype(np.uint32)
     lo_np = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
     pay_np = rng.integers(0, 1 << 30, n).astype(np.int32)
@@ -178,9 +184,10 @@ def test_compact_rounds_match_argsort_branch(density):
     _same_table(got, want)
     assert int(got.count) == total
     # the round loop itself, driven with the plain compaction directly
-    again = TSC.compact_rounds(mask, K_, -(-total // K_), tpay, tupsert,
-                               TT.make(1 << 14, (((), torch.int32),)),
-                               KCP.mask_indices_plain)
+    again, t = TSC.compact_rounds(mask, K_, tpay, tupsert,
+                                  TT.make(1 << 14, (((), torch.int32),)),
+                                  KCP.mask_indices_plain)
+    assert t == total
     _same_table(again, want)
 
 

@@ -5,6 +5,8 @@ ckpt/state.py *_from_numpy functions) and run the same batches; junction
 tables, sink tables, spools and filters must be bit-identical, slot
 arrays included. Integer data throughout, so equality is exact.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from faucet_tpu.core.kmer import pack_reads
 from faucet_tpu_torch.ckpt import state as CK
 from faucet_tpu_torch.config import Config as TConfig
 from faucet_tpu_torch.core import scan as TSC
+from faucet_tpu_torch.core import u32x2 as TU
 
 # the suite runs in several worker processes on few cores: one torch
 # thread each (tiny CPU tensors gain nothing from more)
@@ -180,6 +183,40 @@ def test_stream_tables(reads, monkeypatch, small_spool):
     assert bool(flushes) == small_spool
     s.flush()
     s.check()
+
+
+@pytest.mark.parametrize("n_junc", [64, 0])
+def test_spool_append_whole_rounds(rng, n_junc):
+    """_spool_append with a junction count that is an exact multiple of K
+    (64 lanes, two 32-lane rounds) and with no junction lane: after each
+    of two appends (the second writes from cnt > 0) the spool and the
+    junction table equal the reference's byte for byte."""
+    jcfg, cfg = _cfgs(batch_reads=4, scan_update_cap=32)
+    B, P = cfg.batch_reads, cfg.positions_per_read
+    jj = JT.make(jcfg.junction_cap, (((8,), jnp.int32), ((8,), jnp.uint16)))
+    jp = JSC.make_jspool(jcfg)
+    tj, tp = CK.table_from_numpy(jj), CK.spool_from_numpy(jp)
+    for _ in range(2):
+        is_junc = np.zeros(B * P, bool)
+        is_junc[rng.choice(B * P, n_junc, replace=False)] = True
+        ints = lambda hi: rng.integers(0, hi, (B, P))
+        f = dict(is_junc=is_junc.reshape(B, P), ex_slot=ints(8),
+                 en_slot=ints(8), ex_dist=ints(60), en_dist=ints(60),
+                 exit_ok=rng.random((B, P)) < 0.5,
+                 entry_ok=rng.random((B, P)) < 0.5,
+                 key_hi=ints(1 << 30).astype(np.uint32),
+                 key_lo=rng.integers(0, 1 << 32, (B, P),
+                                     dtype=np.uint64).astype(np.uint32))
+        ju = types.SimpleNamespace(**{k: jnp.asarray(v)
+                                      for k, v in f.items()})
+        tu = types.SimpleNamespace(**{
+            k: TU.u32(v) if v.dtype == np.uint32 else torch.from_numpy(v)
+            for k, v in f.items()})
+        jj, jp = JSC._spool_append(jj, jp, ju, jcfg)
+        tj, tp = TSC._spool_append(tj, tp, tu, cfg)
+        _same_spool(tp, jp)
+        _same_table(tj, jj)
+    assert tp.cnt == 2 * n_junc
 
 
 def test_row_runs(rng):
