@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of faucet_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py             # all phases, one card, ~7 minutes
+    python3 chip_smoke.py             # all phases, one card, ~10 minutes
 
 Phases (each prints its seconds; any failure raises and exits non-zero):
   1 device    torch.cuda must be available; prints the card's name and
@@ -13,14 +13,17 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               and the plain version, the bound from the shapes and the
               share of it achieved; B7 also at its callers' shapes and
               over 1,000 back-to-back calls of changing size (epoch
-              reuse), with torch.nonzero_static beside it as a yardstick
+              reuse), with torch.nonzero_static beside it as a yardstick;
+              B1, B2-B4 and B7 also at the k = 55 path's shapes; B6 also
+              on unaligned, short and past-the-end inputs
   3b entries  the scatter-OR kernels' entry points (no caller on the main
               path), core/bloom.bloom_insert and scatter_or_bits: timed,
               then driven and counted, CUDA == CPU; they use only the API
               that earlier trees share, so --root runs them there too
   4 parity    the port's Pipeline on ~50 kbp of repeat-genome reads, once
-              on the CPU (plain versions) and once on CUDA (kernels):
-              identical contigs, junction and sink tables
+              on the CPU (plain versions) and once on CUDA (kernels), at
+              k = 21 and at k = 55: identical contigs, junction and sink
+              tables (code-word columns included)
   5 scale     2 Mbp genome with repeats, 30x 100 bp reads at 0.5% error,
               bench/scale_run.py's configuration, two-pass file mode:
               18 contigs, N50 221,925, 1,997,960 bases (the record
@@ -29,9 +32,14 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               and on CUDA (identical, both phase it); then the 2 Mbp
               genome as 600,000 mate pairs, paired two-pass file mode:
               the reference's record PAIRED_RECORD, >= 99% genome-true
+  6b wide     k = 55 (wide codes, 8-way extension probe) on the same
+              genome as 30x 150 bp reads, two-pass file mode: the
+              reference's record WIDE_RECORD, >= 99% genome-true; B1 lanes
+              per scan batch, peak device memory
   7 cli       python -m faucet_tpu_torch.cli on 0.5 Mbp of reads, two-pass,
-              --stream and --paired_ends two-pass: FASTA, GFA and both
-              checkpoints written, contigs genome-true; two-pass and
+              --stream, --paired_ends two-pass and -size_kmer 55 two-pass:
+              FASTA, GFA and both checkpoints written, contigs
+              genome-true; two-pass and
               paired cover >= 99% of the genome, and paired equals the
               reference's CLI_PAIRED_RECORD
   8 stream    bench.py's configuration, Pipeline.stream_step over 16
@@ -39,7 +47,7 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               ABBA order, the upsert rounds compacted by the kernel or by
               its plain version: identical tables, medians and quartiles
   9 counters  every main-path kernel launched in each of the scale,
-              paired and stream paths (counts set to 0 just before each
+              paired, wide and stream paths (counts set to 0 just before each
               path and read just after it); device launches of one
               membership query, one compaction and one bloom_insert (1
               each) and one cascade insert (at most 3), from
@@ -52,6 +60,7 @@ chiprun_out/chip_smoke.json. Imports nothing of JAX, nor of faucet_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -65,7 +74,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ROOT = REPO  # where faucet_tpu_torch is imported from (--root)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 PHASES = ("device", "build", "kernels", "entries", "parity", "scale",
-          "paired", "cli", "stream", "counters")
+          "paired", "wide", "cli", "stream", "counters")
 
 # bench/scale_r5_2mb.json: the reference's 2 Mbp assembly
 SCALE_MBP = 2.0
@@ -232,15 +241,16 @@ def log_share(tag, wall, dev, top, n_launches):
     return rec
 
 
-def scale_config(genome_len: int, n_reads: int, paired_ends: bool = False):
-    """bench/scale_run.py's configuration (k=31, 100 bp, 8192/batch)."""
+def scale_config(genome_len: int, n_reads: int, paired_ends: bool = False,
+                 k: int = 31, read_len: int = 100):
+    """bench/scale_run.py's configuration (k=31, 100 bp, 8192/batch); the
+    wide phase sizes k = 55 and 150 bp reads the same way."""
     from faucet_tpu_torch import Config
 
-    k = 31
     n_kmers = genome_len - k + 1
-    return Config(size_kmer=k, max_read_length=100, batch_reads=8192,
+    return Config(size_kmer=k, max_read_length=read_len, batch_reads=8192,
                   estimated_kmers=n_kmers,
-                  singletons=int(n_reads * 100 * 0.005 * k) + n_kmers,
+                  singletons=int(n_reads * read_len * 0.005 * k) + n_kmers,
                   junction_capacity=1 << 20, sink_capacity=4 * n_kmers,
                   fp_rate=0.01, paired_ends=paired_ends)
 
@@ -380,7 +390,9 @@ def check_probe(gen, dev, lib):
     """bloom_contains_codes (B1), hashing fused, against its plain version
     on a half-full 4 MB filter (B, n_hash 3): the walk's frame (4 x 8,192
     extensions, its [8,192] mask broadcast), the file-mode window probe
-    (8,192 reads x 70 windows) and the two stacked E-probes."""
+    (8,192 reads x 70 windows), the two stacked E-probes, and the k = 55
+    scan's window probe (8,192 reads x 96 windows) and extension probe
+    (8,192 x 96 x 8, its own mask, two thirds live as in phase 6b)."""
     import torch
 
     from faucet_tpu_torch.kernels import build as KB
@@ -390,10 +402,16 @@ def check_probe(gen, dev, lib):
     words = torch.randint(-(1 << 31), 1 << 31, (1 << (log2_bits - 5),),
                           generator=gen, device=dev,
                           dtype=torch.int64).to(torch.int32)
-    for shape in ((4, 8192), (573_440,), (1_146_880,)):
+    # (shape, mask shape, live share): the k = 55 window probe's mask is
+    # the valid windows, its extension probe's the unknown lanes
+    for shape, mshape, density in (
+            ((4, 8192), (8192,), 0.9), ((573_440,), (573_440,), 0.9),
+            ((1_146_880,), (1_146_880,), 0.9),
+            ((8192, 96), (8192, 96), 0.99),
+            ((8192, 96, 8), (8192, 96, 8), 0.66)):
         hi, lo = _rand_keys(gen, int(np.prod(shape)), dev)
         hi, lo = hi.view(shape), lo.view(shape)
-        mask = torch.rand(shape[-1:], generator=gen, device=dev) < 0.9
+        mask = torch.rand(mshape, generator=gen, device=dev) < density
         args = (words, hi, lo, mask, nh, log2_bits)
         got = KP.bloom_contains_codes(*args)
         want = KP.bloom_contains_codes_plain(*args)
@@ -432,7 +450,9 @@ def check_cascade(gen, dev, lib):
     insert (1,146,880 lanes, ~3% live, the same live lanes twice, so the
     second pass promotes them into E); filters of 2**24 / 2**22 bits (2 MB
     / 0.5 MB, the shapes phase 3 used before the redesign) and of the 2
-    Mbp run's 2**27 / 2**25 bits (A and D 16 MB, B and E 4 MB)."""
+    Mbp run's 2**27 / 2**25 bits (A and D 16 MB, B and E 4 MB); then the
+    k = 55 load batch, 786,432 keys dense and sparse, into the wide run's
+    2**28 / 2**25 bits."""
     import torch
 
     from faucet_tpu_torch.kernels import build as KB
@@ -524,6 +544,24 @@ def check_cascade(gen, dev, lib):
         res[f"cascade_sparse_{la}_{lb}_3_3"] = run(
             f"sparse 2**{la}/2**{lb} bits, n_hash 3/3", la, lb, 3, 3,
             sparse * 2)
+    # the k = 55 load batch (8,192 reads x 96 windows) into phase 6b's
+    # filters, A 2**28 and B 2**25 bits, n_hash 5/3: keys from a pool of
+    # the 2 Mbp genome's ~2 M k-mers, 97% live; and the same lanes 3% live
+    nw, pool = 786_432, 2_000_000
+    whi, wlo = _rand_keys(gen, pool, dev)
+
+    def wide_batch():
+        pick = torch.randint(0, pool, (nw,), generator=gen, device=dev)
+        return (whi[pick], wlo[pick],
+                torch.rand((nw,), generator=gen, device=dev) < 0.97)
+
+    res["cascade_wide_dense_28_25_5_3"] = run(
+        "k = 55 dense 2**28/2**25 bits, n_hash 5/3", 28, 25, 5, 3,
+        [wide_batch(), wide_batch()])
+    hi, lo = _rand_keys(gen, nw, dev)
+    res["cascade_wide_sparse_28_25_5_3"] = run(
+        "k = 55 sparse 2**28/2**25 bits, n_hash 5/3", 28, 25, 5, 3,
+        [(hi, lo, torch.rand((nw,), generator=gen, device=dev) < 0.03)] * 2)
     return res
 
 
@@ -597,6 +635,20 @@ def check_scatter(gen, dev, lib):
         lambda got: (8 * 4 * n + 4 * (
             n_unique(pos[pos != KS.SENTINEL] >> 5)
             + int((got != w0).sum())), 0))
+    # unaligned views, short inputs, positions past the filter's end
+    far = torch.randint(0, 1 << 28, (4097,), generator=gen, device=dev)
+    cases = [(pos, 1, 4 * n - 1), (pos, 0, 1), (pos, 1, 1), (pos, 1, 2),
+             (pos, 0, 3), (pos, 3, 1000), (far, 0, 4097), (far, 1, 4096)]
+    for src, off, m in cases:
+        p = src[off:off + m]
+        got = KS.scatter_or_bits(w0.clone(), p)
+        want = KS.scatter_or_bits_plain(w0.clone(), p)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"scatter_or_bits: offset {off}, {m} "
+                                 "positions: != plain")
+    log(f"scatter_or_bits: identical on {len(cases)} unaligned, short and "
+        "past-the-end inputs")
     return res
 
 
@@ -606,9 +658,10 @@ def check_compact(gen, dev, lib):
     (both counts above cap) and on a spool flush (1,048,576 lanes, ~0.5%
     live, count below cap); and the callers' shape, cap = N = 573,440
     (upsert_rounds and the spool append take every live lane in one
-    call), at ~1.5% and ~30% live. Beside it, as a yardstick only (the
-    port never calls it), torch.nonzero_static(mask, size=cap) plus the
-    count. Then 1,000 back-to-back calls of changing size and alignment
+    call), at ~1.5% and ~30% live; and the k = 55 scan grid, cap = N =
+    786,432, at the junction (2.7%) and sink (2.4%) shares phase 6b
+    measures. Beside it, as a yardstick only (the port never calls it),
+    torch.nonzero_static(mask, size=cap) plus the count. Then 1,000 back-to-back calls of changing size and alignment
     with the epoch limit lowered so that it wraps, every 100th call held
     to the plain version."""
     import torch
@@ -619,7 +672,9 @@ def check_compact(gen, dev, lib):
     for n, density, cap in ((573_440, 0.015, 8192), (573_440, 0.3, 8192),
                             (1_048_576, 0.005, 8192),
                             (573_440, 0.015, 573_440),
-                            (573_440, 0.3, 573_440)):
+                            (573_440, 0.3, 573_440),
+                            (786_432, 0.027, 786_432),
+                            (786_432, 0.024, 786_432)):
         mask = torch.rand((n,), generator=gen, device=dev) < density
         idx, cnt = KCP.mask_indices(mask, cap)
         pidx, pcnt = KCP.mask_indices_plain(mask, cap)
@@ -739,6 +794,9 @@ def _table_arrays(t):
 
 @phase("parity")
 def run_parity():
+    """The ~50 kbp repeat genome at k = 21 (branch-node junctions) and at
+    k = 55 (wide codes, ext8 junctions): CPU (plain versions) == CUDA
+    (kernels), contigs and tables, code-word columns included."""
     from faucet_tpu_torch import Config
     from faucet_tpu_torch import simulate as SIM
     from faucet_tpu_torch.pipeline import Pipeline
@@ -748,40 +806,48 @@ def run_parity():
                                      repeat_len=200)
     reads = SIM.shred(rng, genome, coverage=40, read_len=100,
                       err_rate=0.005, circular=True)
-    cfg = Config(size_kmer=21, max_read_length=100, batch_reads=2048,
-                 estimated_kmers=1 << 16, singletons=1 << 17,
-                 junction_capacity=1 << 14, sink_capacity=1 << 17,
-                 fp_rate=0.002)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        t0 = time.perf_counter()
-        p = Pipeline(cfg, device=dev)
-        g = p.run_file_mode(reads, reads)
-        out[dev] = (sorted(g.contigs[i].canonical_seq() for i in g.live()),
-                    _table_arrays(p.junctions), _table_arrays(p.sinks))
-        log(f"{dev}: {len(out[dev][0])} contigs in "
-            f"{time.perf_counter() - t0:.2f} s")
-    (ca, ja, sa), (cb, jb, sb) = out["cpu"], out["cuda"]
-    if ca != cb:
-        raise AssertionError("CPU and CUDA contig sets differ")
-    for x, y in zip(ja + sa, jb + sb):
-        if not np.array_equal(x, y):
-            raise AssertionError("CPU and CUDA junction/sink tables differ")
-    frac = genome_true_frac([c for c in cb], genome)
-    log(f"identical assemblies: {len(cb)} contigs, genome-true {frac:.5f}")
-    report["phases"]["parity"].update(contigs=len(cb), genome_true=frac)
+    for k in (21, 55):
+        cfg = Config(size_kmer=k, max_read_length=100, batch_reads=2048,
+                     estimated_kmers=1 << 16, singletons=1 << 17,
+                     junction_capacity=1 << 14, sink_capacity=1 << 17,
+                     fp_rate=0.002)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            p = Pipeline(cfg, device=dev)
+            g = p.run_file_mode(reads, reads)
+            out[dev] = (sorted(g.contigs[i].canonical_seq()
+                               for i in g.live()),
+                        _table_arrays(p.junctions), _table_arrays(p.sinks))
+            log(f"k={k} {dev}: {len(out[dev][0])} contigs in "
+                f"{time.perf_counter() - t0:.2f} s")
+        (ca, ja, sa), (cb, jb, sb) = out["cpu"], out["cuda"]
+        if ca != cb:
+            raise AssertionError(f"k={k}: CPU and CUDA contig sets differ")
+        if len(ja) != len(jb) or len(sa) != len(sb):
+            raise AssertionError(f"k={k}: table columns differ")
+        for x, y in zip(ja + sa, jb + sb):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"k={k}: CPU and CUDA junction/sink "
+                                     "tables differ")
+        frac = genome_true_frac([c for c in cb], genome)
+        log(f"k={k}: identical assemblies: {len(cb)} contigs, "
+            f"{len(ja) - 4} junction value columns, genome-true {frac:.5f}")
+        report["phases"]["parity"][f"k{k}"] = dict(contigs=len(cb),
+                                                  genome_true=frac)
 
 
-def _walk_timer(profile_round=None):
-    """Wrap graph.walk.walk_round to count rounds/steps and time them
-    (one synchronize per round of 64-256 steps). Round `profile_round`
-    runs under the profiler instead and is left out of the counts."""
+def _walk_timer(profile_round=None, name: str = "walk_round"):
+    """Wrap graph.walk's round function `name` (walk_round, or
+    walk_round_wide for k > 31) to count rounds/steps and time them (one
+    synchronize per round of 64-256 steps). Round `profile_round` runs
+    under the profiler instead and is left out of the counts."""
     import torch
 
     from faucet_tpu_torch.graph import walk as W
 
     st = {"rounds": 0, "steps": 0, "lane_steps": 0, "seconds": 0.0}
-    orig = W.walk_round
+    orig = getattr(W, name)
 
     def timed(cascade, junctions, fr, n_steps, cfg, **kw):
         st["rounds"] += 1
@@ -993,6 +1059,133 @@ def run_paired():
         raise AssertionError(f"paired genome-true {frac:.5f} < 0.99")
 
 
+# faucet_tpu (the JAX package, on the JAX CPU backend) on wide_reads():
+# k = 55, two-pass file mode, Bloom mode, ext8 junctions (PERF.md)
+WIDE_RECORD = {"contigs": 18, "n50": 221973, "total": 1998560,
+               "junctions": 68027, "sinks": 756756}
+
+
+def wide_reads():
+    """The scale genome (scale_reads' generator, seed 0, 2 Mbp, 8 x 400 bp
+    repeats) as 30x of 150 bp reads at 0.5% errors, circular."""
+    from faucet_tpu_torch import simulate as SIM
+
+    G = int(SCALE_MBP * 1e6)
+    rng = np.random.default_rng(0)
+    genome = SIM.genome_with_repeats(rng, G, n_repeats=max(4, G // 250_000),
+                                     repeat_len=400)
+    return genome, SIM.shred(rng, genome, coverage=30.0, read_len=150,
+                             err_rate=0.005, circular=True)
+
+
+@contextlib.contextmanager
+def _scan_census(st):
+    """While open, add up on the device the lanes of every membership
+    query (st: queries, grid lanes, live lanes) and the set lanes of every
+    compaction (st["compact"]: (set lanes, lanes) per call, in call
+    order)."""
+    import torch
+
+    from faucet_tpu_torch.core import bloom as BL
+    from faucet_tpu_torch.kernels import compact as CP
+
+    probe, compact = BL.cascade_solid, CP.mask_indices
+
+    def counted(c, khi, klo, mask, cfg):
+        st["queries"] += 1
+        st["grid"] += khi.numel()
+        st["live"] = st["live"] + mask.expand(khi.shape).sum(
+            dtype=torch.int64)
+        return probe(c, khi, klo, mask, cfg)
+
+    def compacted(mask, cap):
+        st["compact"].append((mask.sum(dtype=torch.int64), mask.numel()))
+        return compact(mask, cap)
+
+    BL.cascade_solid, CP.mask_indices = counted, compacted
+    try:
+        yield
+    finally:
+        BL.cascade_solid, CP.mask_indices = probe, compact
+
+
+@phase("wide")
+def run_wide(profile: bool = False):
+    """k = 55 (wide codes, the 8-way extension probe) on the 2 Mbp repeat
+    genome, 30x 150 bp reads, 8,192 reads per batch, Bloom mode, two-pass
+    file mode, sized as scale_config sizes phase 5: WIDE_RECORD exactly,
+    >= 99% genome-true. Prints the phases' seconds, walk ms per step, B1's
+    lanes per scan batch, the share of set lanes B7 compacts (junctions,
+    sinks) and the peak device memory."""
+    import torch
+
+    from faucet_tpu_torch import Metrics
+    from faucet_tpu_torch.graph import walk as W
+    from faucet_tpu_torch.pipeline import Pipeline, batch_iter
+
+    t0 = time.perf_counter()
+    genome, reads = wide_reads()
+    log(f"{SCALE_MBP} Mbp genome, {len(reads)} reads of 150 bp synthesized "
+        f"in {time.perf_counter() - t0:.2f} s")
+    cfg = scale_config(len(genome), len(reads), k=55, read_len=150)
+    assert cfg.wide and not cfg.use_node_junctions
+    torch.cuda.reset_peak_memory_stats()
+    p = Pipeline(cfg, Metrics(), device="cuda")
+    ph, lanes = {}, {"queries": 0, "grid": 0, "live": 0, "compact": []}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        ph[name] = time.perf_counter() - t
+        log(f"  {name}: {ph[name]:.2f} s")
+        return r
+
+    orig_w, wrapped, wst = _walk_timer(20 if profile else None,
+                                       "walk_round_wide")
+    W.walk_round_wide = wrapped
+    try:
+        timed("load", lambda: p.load_batches(batch_iter(reads, cfg)))
+        with _scan_census(lanes):
+            timed("scan", lambda: p.scan_batches(batch_iter(reads, cfg)))
+        g = timed("graph_build", p.build)
+        g = timed("clean", lambda: p.clean_graph(g))
+    finally:
+        W.walk_round_wide = orig_w
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = -(-len(reads) // cfg.batch_reads)
+    lanes["live"] = int(lanes["live"])
+    # per batch the junction lanes are compacted, then the sink lanes
+    comp = lanes.pop("compact")
+    share = {name: sum(int(c) for c, _ in comp[i::2])
+             / max(sum(n for _, n in comp[i::2]), 1)
+             for i, name in enumerate(("junction", "sink"))}
+    contigs = [g.contigs[i].seq for i in g.live()]
+    lens = [len(c) for c in contigs]
+    got = {"contigs": len(contigs), "n50": n50(lens), "total": sum(lens),
+           "junctions": int(p.junctions.count), "sinks": int(p.sinks.count)}
+    frac = genome_true_frac(contigs, genome)
+    ms_step = 1e3 * wst["seconds"] / max(wst["steps"], 1)
+    log(f"wide assembly {got}, genome-true {frac:.5f}; walk: "
+        f"{wst['rounds']} rounds, {wst['steps']} steps timed in "
+        f"{wst['seconds']:.2f} s, {ms_step:.3f} ms/step")
+    log(f"B1 per scan batch: {lanes['queries'] / n_batches:.1f} queries, "
+        f"{lanes['grid'] / n_batches:.0f} lanes, "
+        f"{lanes['live'] / n_batches:.0f} live; B7: {len(comp)} calls, "
+        f"junction lanes {share['junction']:.4f} and sink lanes "
+        f"{share['sink']:.4f} of the grid; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    report["phases"]["wide"].update(
+        phase_s=ph, walk=wst, walk_ms_per_step=ms_step, genome_true=frac,
+        b1_per_scan_batch={x: lanes[x] / n_batches for x in lanes},
+        b7_set_share=share,
+        peak_bytes=peak, **got)
+    if got != WIDE_RECORD:
+        raise AssertionError(f"wide {got} != record {WIDE_RECORD}")
+    if frac < 0.99:
+        raise AssertionError(f"wide genome-true {frac:.5f} < 0.99")
+
+
 @phase("cli")
 def run_cli():
     from faucet_tpu_torch import simulate as SIM
@@ -1005,16 +1198,18 @@ def run_cli():
     # 15x per mate: the same 30x of reads as the unpaired runs
     mates = shred(SIM, np.random.default_rng(CLI_MATES_SEED), genome, True,
                   coverage=15.0)
-    cfg = scale_config(len(genome), len(reads))
     with tempfile.TemporaryDirectory() as d:
         fa, fp = os.path.join(d, "reads.fa"), os.path.join(d, "mates.fa")
         SIM.write_fasta(fa, reads)
         SIM.write_fasta(fp, mates)
-        for mode in ("two_pass", "stream", "paired"):
+        # "wide": -size_kmer 55 (wide codes, ext8 junctions), two-pass
+        for mode in ("two_pass", "stream", "paired", "wide"):
             prefix = os.path.join(d, mode)
             src = fp if mode == "paired" else fa
+            k = 55 if mode == "wide" else 31
+            cfg = scale_config(len(genome), len(reads), k=k)
             cmd = [sys.executable, "-m", "faucet_tpu_torch.cli",
-                   "-read_load_file", src, "-size_kmer", "31",
+                   "-read_load_file", src, "-size_kmer", str(k),
                    "-max_read_length", "100",
                    "-estimated_kmers", str(cfg.estimated_kmers),
                    "-singletons", str(cfg.singletons),
@@ -1047,7 +1242,8 @@ def run_cli():
                 raise AssertionError(f"cli {mode}: genome-true {frac}")
             got = {"contigs": len(contigs),
                    "n50": n50([len(c) for c in contigs]), "total": total}
-            if mode != "stream" and total < 0.99 * len(genome):
+            if mode in ("two_pass", "paired") and \
+                    total < 0.99 * len(genome):
                 raise AssertionError(f"cli {mode}: {total} bases of "
                                      f"{len(genome)}")
             if mode == "paired" and got != CLI_PAIRED_RECORD:
@@ -1213,7 +1409,7 @@ def kernel_line(launches):
              "launches": launches.get(key),
              "launches_from": ("the entries phase (no caller on any "
                                "path)" if key in entries
-                               else "the paired path (phase 6)"),
+                               else "the wide path (k = 55)"),
              "max_abs_err": max(errs) if errs else None,
              **{x: row.get(x) for x in keys}}
         if key not in entries:
@@ -1229,7 +1425,7 @@ def kernel_line(launches):
               rows("probe"), k.get("probe_4x8192", {})),
         entry("cascade_insert", "cascade.cu", "cascade.py:470", "cascade",
               rows("cascade"),
-              (k.get("cascade_dense_27_25_7_3") or [{}])[0]),
+              (k.get("cascade_wide_dense_28_25_5_3") or [{}])[0]),
         entry("bloom_insert_codes", "bloom_scatter.cu",
               "bloom_scatter.py:124", "bloom_insert_codes",
               rows("insert_codes"), k.get("insert_codes_A", {})),
@@ -1237,7 +1433,7 @@ def kernel_line(launches):
               "scatter_or_bits", rows("scatter_bits"),
               k.get("scatter_bits", {})),
         entry("mask_indices", "compact.cu", "compact.py:56", "compact",
-              rows("compact"), k.get("compact_573440_0.015_573440", {}))]}
+              rows("compact"), k.get("compact_786432_0.027_786432", {}))]}
 
 
 def main(argv=None) -> int:
@@ -1280,6 +1476,10 @@ def main(argv=None) -> int:
         zero_counts()
         run_paired()
         by_path["paired"] = read_counts()
+    if "wide" in want:
+        zero_counts()
+        run_wide(args.profile)
+        by_path["wide"] = read_counts()
     if "cli" in want:
         run_cli()
     if "stream" in want:
@@ -1291,12 +1491,12 @@ def main(argv=None) -> int:
             if not all(counts.values()):
                 raise AssertionError(f"{path}: a kernel was never launched: "
                                      f"{counts}")
-    # this slice's path is the paired one; scatter-OR has no caller on
+    # this slice's path is the wide one; scatter-OR has no caller on
     # any path: its entry points were driven, and counted, in phase 3b
-    launches = dict(by_path.get("paired", {}))
+    launches = dict(by_path.get("wide", {}))
     launches.update(report.get("entry_launches", {}))
-    log(f"[counters] paired path with the entry points: {launches}")
-    if "counters" in want and "entries" in want and "paired" in want and \
+    log(f"[counters] wide path with the entry points: {launches}")
+    if "counters" in want and "entries" in want and "wide" in want and \
             not all(launches.values()):
         raise AssertionError(f"a kernel was never launched: {launches}")
 

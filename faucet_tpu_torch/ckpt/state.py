@@ -3,10 +3,11 @@ between the reference's state and the port's.
 
 Port of faucet_tpu/ckpt/state.py with the same npz layout and config hash,
 so either package resumes from the other's checkpoint. On disk, words and
-keys are uint32, junction dist8 is uint16 and count/dropped are int32
-scalars, exactly as the reference writes them; in memory the port keeps
-int32 bit patterns, int32 dist8 and a trailing TRASH row per table
-(core/table.py).
+keys are uint32, junction dist8 is uint16, the wide tables' code-word
+column is uint32 and count/dropped are int32 scalars, exactly as the
+reference writes them; in memory the port keeps int32 bit patterns, int32
+dist8, the code words as int64 (so a "max" combine keeps their unsigned
+order) and a trailing TRASH row per table (core/table.py).
 
 The *_from_numpy / *_to_numpy functions are the in-memory form of the same
 mapping: they take the reference's state (its NamedTuples, or anything
@@ -61,7 +62,9 @@ def table_from_numpy(t, device=None) -> T.Table:
             device)
 
     def val(a):
-        a = np.asarray(a).astype(np.int32)
+        a = np.asarray(a)
+        # uint32 values (the wide code words) as int64, the rest as int32
+        a = a.astype(np.int64 if a.dtype == np.uint32 else np.int32)
         a = np.concatenate([a, np.zeros((1,) + a.shape[1:], a.dtype)])
         return torch.from_numpy(a).to(device)
 
@@ -75,10 +78,13 @@ def table_from_numpy(t, device=None) -> T.Table:
 def table_to_numpy(t: T.Table, val_dtypes: Optional[Sequence] = None
                    ) -> Dict[str, object]:
     """Port Table -> dict of numpy arrays in the reference's layout
-    (TRASH row dropped). val_dtypes: numpy dtype per value array (the
-    junction table's dist8 is uint16 in the reference); default int32."""
+    (TRASH row dropped). val_dtypes: numpy dtypes of the first value
+    arrays (the junction table's dist8 is uint16 in the reference); the
+    rest are uint32 when held as int64 (code words), else int32."""
     cap = t.capacity
-    dts = val_dtypes or [np.int32] * len(t.vals)
+    dts = list(val_dtypes or ()) + [
+        np.uint32 if v.dtype == torch.int64 else np.int32
+        for v in t.vals[len(val_dtypes or ()):]]
     return {"keys_hi": words_to_numpy(t.keys_hi[:cap]),
             "keys_lo": words_to_numpy(t.keys_lo[:cap]),
             "vals": tuple(v[:cap].cpu().numpy().astype(d)

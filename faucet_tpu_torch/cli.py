@@ -66,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported (ROADMAP.md: dist/)")
     p.add_argument("--junction_detect", default="auto",
                    choices=("auto", "nodes", "ext8"),
-                   help="ext8 is not ported (ROADMAP.md: ext8)")
+                   help="auto: nodes for k <= 31, ext8 above")
     p.add_argument("-second_kmer", type=int, default=None,
                    help="not ported (ROADMAP.md: dual-k)")
     p.add_argument("--device", default="cuda",
@@ -85,10 +85,6 @@ def unported_flags(a):
     out = []
     if a.exact:
         out.append(("--exact", "exact mode"))
-    if a.junction_detect == "ext8":
-        out.append(("--junction_detect ext8", "ext8"))
-    if a.size_kmer > 31:
-        out.append(("-size_kmer > 31", "wide k"))
     if a.n_shards > 1:
         out.append(("--n_shards > 1", "dist/"))
     if a.distributed_clean:

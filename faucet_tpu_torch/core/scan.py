@@ -1,14 +1,17 @@
 """Phase-2 device scan: dense junction detection over read batches.
 
-Port of faucet_tpu/core/scan.py, the branch-node path (junction_detect
-auto/nodes with k <= 31), with paired-end junction-pair capture. The
-8-way extension probe (ext8) and wide k are not ported (ROADMAP.md). Per
-batch:
-  1. kmerize -> per-window canonical codes           [B, P]
-  2. window solidity in B, two branch-node probes in E per window
+Port of faucet_tpu/core/scan.py, both junction modes and both code
+widths, with paired-end junction-pair capture. Per batch:
+  1. kmerize -> per-window canonical codes [B, P] (k > 31: four-word codes
+     with fingerprint keys, core/wide.py)
+  2. window solidity in B; junction-ness from two branch-node probes in E
+     per window (junction_detect nodes, k <= 31) or from the 8-way
+     extension probe (ext8; the only mode for k > 31)
   3. segment rows into maximal solid runs (cumulative max/min)
   4. junction records (per-slot cov and dist) -> spool or table upsert
   5. every maximal solid-run end -> sink anchor upsert
+Wide tables carry the canonical code's four words as one more value,
+combined with "max".
 
 Device loops of the reference (lax.cond, fori_loop over a traced round
 count) are host loops here; each needs one host sync for its count.
@@ -24,6 +27,7 @@ from faucet_tpu_torch.core import kmer as KM
 from faucet_tpu_torch.core import nodes as ND
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core import u32x2 as u2
+from faucet_tpu_torch.core import wide as WD
 from faucet_tpu_torch.core.hashing import pair_key
 from faucet_tpu_torch.core.slots import entry_slot, exit_slot
 from faucet_tpu_torch.kernels import compact as CP
@@ -185,8 +189,8 @@ def _row_runs(solid, is_junc):
 
 
 class ScanUpdates(NamedTuple):
-    """Per-window update grids produced by scan_core (the reference's,
-    minus the wide-k word grid)."""
+    """Per-window update grids produced by scan_core (the reference's; its
+    [B, P, 4] wide word grid is `words` here, None for narrow codes)."""
     is_junc: torch.Tensor    # [B, P] junction-window mask
     ex_slot: torch.Tensor    # [B, P] exit slot (0..7)
     en_slot: torch.Tensor    # [B, P] entry slot (0..7)
@@ -203,6 +207,7 @@ class ScanUpdates(NamedTuple):
     canon_lo: torch.Tensor
     n_solid: torch.Tensor
     n_junc_pos: torch.Tensor
+    words: torch.Tensor = None  # [B, P, 4] canonical code words (wide)
 
 
 def cov_dist8(ex_slot, en_slot, ex_dist, en_dist, exit_ok, entry_ok):
@@ -257,7 +262,8 @@ def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
     """Single-shard scan. window_solid: optional precomputed [B, P]
     B-membership of the windows (single-pass streaming reuses the insert
     pass's flags instead of re-probing). jspool: junction lanes append to
-    the spool instead of upserting per batch; the caller flushes."""
+    the spool instead of upserting per batch (narrow keys only); the
+    caller flushes. Wide tables take the code words as a last value."""
     solid_fn = lambda khi, klo, m: BL.cascade_solid(cascade, khi, klo, m,
                                                     cfg)
     node_fn = None
@@ -269,29 +275,33 @@ def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
                   window_solid=window_solid)
     flat = lambda a: a.reshape(-1)
     K = min(u.is_junc.numel(), cfg.scan_update_cap)
+    wcol = () if u.words is None else (u.words.reshape(-1, WD.NW),)
+    wmode = ("max",) * len(wcol)
 
-    if jspool is not None:
+    if jspool is not None and not wcol:
         junctions, jspool = _spool_append(junctions, jspool, u, cfg)
     else:
         def jfn(tbl, cm, ps):
-            jhi, jlo, exs, ens, exd, end_, exo, eno = ps
+            jhi, jlo, exs, ens, exd, end_, exo, eno = ps[:8]
             cov8, dist8 = cov_dist8(exs, ens, exd, end_, exo, eno)
-            return T.upsert(tbl, jhi, jlo, (cov8, dist8), cm,
-                            modes=("add", "max"), shard_bits=cfg.shard_bits)
+            return T.upsert(tbl, jhi, jlo, (cov8, dist8) + ps[8:], cm,
+                            modes=("add", "max") + wmode,
+                            shard_bits=cfg.shard_bits)
 
         junctions, _ = upsert_rounds(
             flat(u.is_junc), K,
             (flat(u.key_hi), flat(u.key_lo), flat(u.ex_slot),
              flat(u.en_slot), flat(u.ex_dist), flat(u.en_dist),
-             flat(u.exit_ok), flat(u.entry_ok)), jfn, junctions)
+             flat(u.exit_ok), flat(u.entry_ok)) + wcol, jfn, junctions)
 
     def sfn(tbl, cm, ps):
-        return T.upsert(tbl, ps[0], ps[1], (ps[2],), cm, modes=("add",),
+        return T.upsert(tbl, ps[0], ps[1], ps[2:], cm, modes=("add",) + wmode,
                         shard_bits=cfg.shard_bits)
 
     sinks, _ = upsert_rounds(
         flat(u.sink_pos), K,
-        (flat(u.key_hi), flat(u.key_lo), flat(u.sink_cov)), sfn, sinks)
+        (flat(u.key_hi), flat(u.key_lo), flat(u.sink_cov)) + wcol, sfn,
+        sinks)
     return ScanResult(
         junctions=junctions, sinks=sinks, n_solid=u.n_solid,
         n_junc_pos=u.n_junc_pos, jm=u.jm, canon_hi=u.canon_hi,
@@ -301,18 +311,33 @@ def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
 def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
               window_solid=None) -> ScanUpdates:
     """Scan with injected oracles: solid_fn answers membership in B,
-    node_solid_fn membership of tagged branch-node keys in E."""
+    node_solid_fn (junction_detect nodes) membership of tagged branch-node
+    keys in E. Without it, junctions come from the 8-way extension probe.
+    For k > 31 the window keys are fingerprints of four-word codes; all
+    that follows (key, slot, mask) is width-agnostic."""
     k = cfg.size_kmer
-    if k > 31 or node_solid_fn is None or not cfg.use_node_junctions:
-        raise NotImplementedError(
-            "faucet_tpu_torch scans with the branch-node cascade only "
-            "(k <= 31, junction_detect auto|nodes); see ROADMAP.md (ext8, "
-            "wide k)")
-    view = KM.kmerize(bases, lens, k)
-    key_hi, key_lo = view.canon_hi, view.canon_lo
-    cisf, valid = view.canon_is_fwd, view.valid
-    other_hi, other_lo = u2.select(cisf, view.rc_hi, view.rc_lo,
-                                   view.fwd_hi, view.fwd_lo)
+    nodes = node_solid_fn is not None and cfg.use_node_junctions
+    if k <= 31:
+        view = KM.kmerize(bases, lens, k)
+        key_hi, key_lo = view.canon_hi, view.canon_lo
+        cisf, valid = view.canon_is_fwd, view.valid
+        other_hi, other_lo = u2.select(cisf, view.rc_hi, view.rc_lo,
+                                       view.fwd_hi, view.fwd_lo)
+        words = None
+
+        def ext_keys():
+            return KM.slot_ext_pairs(key_hi, key_lo, other_hi, other_lo, k)
+    else:
+        if nodes:
+            raise ValueError("branch-node junctions need k <= 31")
+        wv = WD.kmerize_wide(bases, lens, k)
+        key_hi, key_lo = wv.key_hi, wv.key_lo
+        cisf, valid = wv.canon_is_fwd, wv.valid
+        other = WD.wselect(cisf, wv.rc, wv.fwd)
+        words = wv.canon.permute(1, 2, 0)  # [B, P, 4]
+
+        def ext_keys():
+            return WD.slot_ext_keys_wide(wv.canon, other, k)
     B, P = key_hi.shape
     solid = (window_solid & valid) if window_solid is not None \
         else solid_fn(key_hi, key_lo, valid)
@@ -327,13 +352,35 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
     ex_slot = exit_slot(cisf, torch.clamp(nb, max=3).to(torch.int64))
     en_slot = entry_slot(cisf, torch.clamp(pb, max=3).to(torch.int64))
 
-    rk_hi, rk_lo, lk_hi, lk_lo = ND.probe_keys(key_hi, key_lo, other_hi,
-                                               other_lo, k)
-    # one probe call for both branch queries: one kernel launch
-    qhi = torch.stack([rk_hi, lk_hi])
-    qlo = torch.stack([rk_lo, lk_lo])
-    branch = node_solid_fn(qhi, qlo, solid.expand(2, B, P))
-    is_junc = solid & (branch[0] | branch[1])
+    if nodes:
+        rk_hi, rk_lo, lk_hi, lk_lo = ND.probe_keys(key_hi, key_lo, other_hi,
+                                                   other_lo, k)
+        # one probe call for both branch queries: one kernel launch
+        qhi = torch.stack([rk_hi, lk_hi])
+        qlo = torch.stack([rk_lo, lk_lo])
+        branch = node_solid_fn(qhi, qlo, solid.expand(2, B, P))
+        is_junc = solid & (branch[0] | branch[1])
+    else:
+        # The read itself answers 2 of the 8 extension probes: the slot the
+        # read exits a window by IS the next window's k-mer, the entry slot
+        # the previous window's. Those lanes are masked off the probe (the
+        # kernel skips masked lanes) and filled from the neighbouring
+        # windows' own solidity: bit-identical to probing them.
+        sl8 = torch.arange(8, device=bases.device)
+        ex_oh_b = (ex_slot[..., None] == sl8) \
+            & (valid & _shift(valid, -1, False))[..., None]
+        en_oh_b = (en_slot[..., None] == sl8) \
+            & (valid & _shift(valid, 1, False))[..., None]
+        known = ex_oh_b | en_oh_b
+        fill = ((ex_oh_b & _shift(solid, -1, False)[..., None])
+                | (en_oh_b & _shift(solid, 1, False)[..., None])) \
+            & solid[..., None]
+        ehi, elo = ext_keys()
+        # one [B, P, 8] query: one kernel launch
+        probed = solid_fn(ehi, elo, solid[..., None] & ~known)
+        ext_solid = torch.where(known, fill, probed)
+        is_junc = solid & ((ext_solid[..., :4].sum(-1) >= 2)
+                           | (ext_solid[..., 4:].sum(-1) >= 2))
 
     rs, re, pj, nj, tot, start_m, end_m = _row_runs(solid, is_junc)
     pos = torch.arange(P, device=bases.device)[None, :]
@@ -351,7 +398,7 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
         en_dist=en_dist, exit_ok=exit_ok, entry_ok=entry_ok,
         sink_pos=sink_pos, sink_cov=sink_cov, key_hi=key_hi, key_lo=key_lo,
         jm=is_junc, canon_hi=key_hi, canon_lo=key_lo,
-        n_solid=solid.sum(), n_junc_pos=is_junc.sum())
+        n_solid=solid.sum(), n_junc_pos=is_junc.sum(), words=words)
 
 
 J_CHUNK = 32  # junction lanes per pair-capture tile side (not a cap: tiles
@@ -427,11 +474,15 @@ def load_batch(cascade: BL.Cascade, bases, lens, cfg) -> BL.Cascade:
 
 def load_batch_s(cascade: BL.Cascade, bases, lens, cfg):
     """load_batch + the per-window solidity grid."""
-    view = KM.kmerize(bases, lens, cfg.size_kmer)
+    if cfg.size_kmer <= 31:
+        view = KM.kmerize(bases, lens, cfg.size_kmer)
+        khi, klo, valid = view.canon_hi, view.canon_lo, view.valid
+    else:
+        wv = WD.kmerize_wide(bases, lens, cfg.size_kmer)
+        khi, klo, valid = wv.key_hi, wv.key_lo, wv.valid
     cascade, _new_b, solid = BL.cascade_insert_nbs(
-        cascade, view.canon_hi.reshape(-1), view.canon_lo.reshape(-1),
-        view.valid.reshape(-1), cfg)
-    return cascade, solid.reshape(view.canon_hi.shape)
+        cascade, khi.reshape(-1), klo.reshape(-1), valid.reshape(-1), cfg)
+    return cascade, solid.reshape(khi.shape)
 
 
 def load_batch_nodes(cascade: BL.Cascade, node_cascade: BL.Cascade,

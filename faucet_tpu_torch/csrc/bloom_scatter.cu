@@ -39,7 +39,11 @@
 //
 // Positions (ft_scatter_or_bits_kernel): one thread per position, one
 // atomicOr each; a SENTINEL (0xFFFFFFFF) position or one past the filter's
-// end is skipped.
+// end is skipped. Two redesigns were slower on an H100 (PERF.md, B6): four
+// positions per thread in 16-byte loads before any `red.global.or`, and
+// binning by 64 KB tile with shared-memory ORs. Each random OR is a
+// read-modify-write of a 32-byte L2 sector, which paces every design that
+// ORs in place.
 #include <cuda_runtime.h>
 
 #include "bloom_bits.cuh"

@@ -1,11 +1,15 @@
 """Phase-3 graph build: device walks -> host ContigGraph.
 
-Port of faucet_tpu/graph/build.py, single process, narrow codes (k <= 31).
-All walks run as one lockstep device frontier (graph/walk.py); the host
-decodes the base strips and assembles Contig records. Pass 2 rebuilds
-junction-free components from sink anchors in chunks, filtering later
-sinks through the k-mers already visited. The host logic is the
-reference's line for line; the device side differs in three ways:
+Port of faucet_tpu/graph/build.py, single process. A codec hides the
+difference between narrow codes (k <= 31: the table keys ARE the canonical
+codes) and wide ones (k > 31: fingerprint keys, the four code words stored
+as a table value, core/wide.py). All walks run as one lockstep device
+frontier (graph/walk.py); the host decodes the base strips and assembles
+Contig records. Pass 2 rebuilds junction-free components from sink
+anchors in chunks, filtering later sinks through the k-mers already
+visited. The host logic is the reference's line for line, except that
+pass 1's contigs are keyed and marked visited in one call (the same
+visited set); the device side differs in three ways:
 extract_table gathers only occupied rows on the device before the copy
 to the host, frontier compaction stays on the device, and the walk's
 junction test is a sorted-key search over the extracted junction keys
@@ -23,6 +27,7 @@ import torch
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core import u32x2 as u2
+from faucet_tpu_torch.core import wide as WD
 from faucet_tpu_torch.core.kmer import (decode_kmer, decode_kmers_np,
                                         encode_kmer, encode_windows_np,
                                         neighbor_keys_np, revcomp_code_np,
@@ -70,6 +75,11 @@ class _NarrowCodec:
         """uint64 table keys of every canonical k-window of a string."""
         return encode_windows_np(s, self.k)
 
+    def key_windows_many(self, seqs) -> np.ndarray:
+        """key_windows of every string, concatenated."""
+        return np.concatenate([np.zeros(0, np.uint64)]
+                              + [encode_windows_np(s, self.k) for s in seqs])
+
     def make_frontier(self, payload, dirs, forced, active, circle_ok,
                       pad):
         chi = pad(payload["hi"], 0)
@@ -103,36 +113,98 @@ class _NarrowCodec:
         hi, lo = encode_kmer(min(s, revcomp_seq(s)))
         return (hi << 32) | lo
 
+    def walk_round(self):
+        return W.walk_round  # looked up per call (the smoke times it)
+
+    def resolver(self):
+        return W.resolve_ambiguous
+
+
+class _WideCodec:
+    """k > 31: fingerprint keys; the true four-word codes stored as the
+    table value `words_col` (uint32 values as int64)."""
+
+    def __init__(self, cfg, device, words_col: str):
+        self.cfg = cfg
+        self.k = cfg.size_kmer
+        self.device = device
+        self.words_col = words_col
+
+    def seed_payload(self, t, rows):
+        return {"words": t[self.words_col][rows]}
+
+    def node_strs(self, t, rows):
+        return [WD.decode_kmer_wide(t[self.words_col][i], self.k)
+                for i in rows]
+
+    def key_windows(self, s: str) -> np.ndarray:
+        return WD.encode_windows_wide_np(s, self.k)
+
+    def key_windows_many(self, seqs) -> np.ndarray:
+        return WD.encode_windows_wide_many_np(seqs, self.k)
+
+    def make_frontier(self, payload, dirs, forced, active, circle_ok,
+                      pad):
+        words = np.asarray(payload["words"], np.uint32)   # [n, 4]
+        rcw = WD.revcomp_words_np(words, self.k)
+        dev = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a)).to(self.device)
+        wdev = lambda a: dev(pad(a.astype(np.int64), 0).T)  # [4, Wp]
+        return W.make_frontier_wide(
+            wdev(words), wdev(rcw), dev(pad(np.asarray(dirs, np.int64), 0)),
+            dev(pad(np.asarray(forced, np.int64), -1)), dev(active),
+            dev(pad(np.asarray(circle_ok, bool), False)))
+
+    def end_state(self, fr):
+        canon, _ = WD.canon_of_wide(fr.fwd, fr.rc)
+        khi, klo = WD.fingerprint(canon)
+        return {"hi": u2.to_np_u32(khi), "lo": u2.to_np_u32(klo),
+                "words": u2.to_np_u32(canon.T)}
+
+    def end_keys(self, st, idx):
+        return u2.to_int(st["hi"][idx], st["lo"][idx])
+
+    def end_str(self, st, i) -> str:
+        return WD.decode_kmer_wide(st["words"][i], self.k)
+
+    def walk_round(self):
+        return W.walk_round_wide  # looked up per call (the smoke times it)
+
+    def resolver(self):
+        return W.resolve_ambiguous_wide
+
 
 class GraphBuilder:
     def __init__(self, cfg, cascade: BL.Cascade, junctions: T.Table,
                  sinks: T.Table):
-        if cfg.wide:
-            raise NotImplementedError(
-                "wide k (k > 31) is not ported to faucet_tpu_torch; see "
-                "ROADMAP.md (wide k)")
         self.cfg = cfg
         self.cascade = cascade
         self.junctions = junctions
         self.sinks = sinks
         self.device = cascade.b_bloom.words.device
-        self.codec_j = self.codec_s = _NarrowCodec(cfg, self.device)
-        self._walk_fn = W.walk_round
+        if cfg.wide:
+            # junction codes in value 2 (after cov8, dist8), sink codes in 1
+            self.codec_j = _WideCodec(cfg, self.device, "v2")
+            self.codec_s = _WideCodec(cfg, self.device, "v1")
+        else:
+            self.codec_j = self.codec_s = _NarrowCodec(cfg, self.device)
+        self._junc_fn = None  # the walks' junction oracle, set by build()
 
     # ---- device walk driver --------------------------------------------
     @staticmethod
     def _gather_frontier(fr, idx: np.ndarray, newp: int):
         """Compact a frontier to the idx lanes, zero-padded to newp
-        (the pow2 ladder of the reference; done on the device)."""
+        (the pow2 ladder of the reference; done on the device). Lanes are
+        the last dimension of every field ([4, W] wide words included)."""
         it = torch.from_numpy(idx.astype(np.int64)).to(fr.steps.device)
 
         def g(leaf):
-            out = torch.zeros((newp,) + leaf.shape[1:], dtype=leaf.dtype,
+            out = torch.zeros(leaf.shape[:-1] + (newp,), dtype=leaf.dtype,
                               device=leaf.device)
-            out[:len(idx)] = leaf[it]
+            out[..., :len(idx)] = leaf[..., it]
             return out
 
-        return W.Frontier(*(g(leaf) for leaf in fr))
+        return type(fr)(*(g(leaf) for leaf in fr))
 
     def _run_walks(self, codec, payload, dirs, forced, circle_ok):
         """Run all walks to completion in lockstep waves, COMPACTING the
@@ -185,9 +257,11 @@ class GraphBuilder:
         while total < cfg.max_contig_len:
             rr, ss = warmup.pop(0) if warmup else (R,
                                                    cfg.walk_round_steps)
-            fr, bases, _r = W.walk_waves(self.cascade, self.junctions, fr,
-                                         n_rounds=rr, n_steps=ss, cfg=cfg,
-                                         walk_fn=self._walk_fn)
+            fr, bases, _r = W.walk_waves(
+                self.cascade, self.junctions, fr, n_rounds=rr, n_steps=ss,
+                cfg=cfg, walk_fn=functools.partial(codec.walk_round(),
+                                                   junc_fn=self._junc_fn),
+                resolve_fn=codec.resolver())
             b = bases.cpu().numpy()
             mask = b != 255
             counts = mask.sum(axis=1)
@@ -240,9 +314,8 @@ class GraphBuilder:
         all_rows = list(range(n_j))
         jnode_strs = self.codec_j.node_strs(jt, all_rows) if n_j else []
         # the walks' junction oracle: the sorted occupied keys
-        self._walk_fn = functools.partial(
-            W.walk_round, junc_fn=W.sorted_member(
-                torch.from_numpy(jkeys.astype(np.int64)).to(self.device)))
+        self._junc_fn = W.sorted_member(
+            torch.from_numpy(jkeys.astype(np.int64)).to(self.device))
 
         # sink/cap anchors (extracted once; pass-1 FP-trim + pass-2 seeds)
         st = extract_table(self.sinks)
@@ -297,8 +370,14 @@ class GraphBuilder:
                 hit |= ch[idx] == keys
             return hit
 
-        for c in by_key.values():
-            mark_visited(c)
+        # pass 1's contigs go in as one sorted chunk, keyed in one call
+        # (membership is the same as marking them one by one)
+        w = self.codec_s.key_windows_many(
+            [c.seq + (c.seq[: k - 1] if c.circular else "")
+             for c in by_key.values()])
+        if len(w):
+            w.sort()
+            chunks.append(w)
 
         # ---- pass 2: junction-free components from sink anchors ---------
         jset = np.asarray(sorted({int(x) for x in jkeys}), np.uint64)
@@ -309,7 +388,7 @@ class GraphBuilder:
         while len(pend):
             live = ~visited_mask(skeys_s[pend])
             pend = pend[live]
-            if len(pend):
+            if len(pend) and not cfg.wide:
                 # seeds one base OFF walked territory walk straight back
                 # onto it; skip them by testing the 8 neighbors
                 nbr = neighbor_keys_np(skeys_s[pend], k)

@@ -1,9 +1,10 @@
 """Device frontier walk: lockstep contig reconstruction through filter B.
 
-Port of faucet_tpu/graph/walk.py, narrow codes (k <= 31) only. All walks
-advance in lockstep: each step is one batched 4-way solidity probe (the
-probe kernel on CUDA) plus a junction-membership test over the frontier,
-with per-lane masks retiring finished walks.
+Port of faucet_tpu/graph/walk.py: narrow codes (k <= 31, Frontier) and
+four-word wide codes (FrontierW, core/wide.py). All walks advance in
+lockstep: each step is one batched 4-way solidity probe (the probe kernel
+on CUDA) plus a junction-membership test over the frontier, with per-lane
+masks retiring finished walks.
 
 End kinds: 0 running, 1 hit junction, 2 dead end, 3 circular, 4 ambiguous
 (transient: resolve_ambiguous judges each such retirement exactly once).
@@ -23,6 +24,8 @@ import torch
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core import u32x2 as u2
+from faucet_tpu_torch.core import wide as WD
+from faucet_tpu_torch.core.slots import entry_slot
 
 RUNNING, END_JUNCTION, END_DEAD, END_CIRCULAR, END_AMBIG = range(5)
 M32 = 0xFFFFFFFF
@@ -247,6 +250,147 @@ def resolve_ambiguous(cascade: BL.Cascade, fr: Frontier, cfg,
     if not cfg.break_on_deep_tie:
         # >=2 deep survivors: both paths real (see the reference)
         resolved = resolved | (amb & (scnt >= 2))
+    return _scatter_resolved(fr, lanes, amb, resolved,
+                             strong4.to(torch.uint8).argmax(-1))
+
+
+# ---- wide (k > 31) frontier: four-word codes, fingerprint keys -------------
+
+
+class FrontierW(NamedTuple):
+    fwd: torch.Tensor         # [4, W] travel-frame forward code words
+    rc: torch.Tensor          # [4, W]
+    t0: torch.Tensor          # [4, W] start travel-frame code (circles)
+    forced: torch.Tensor
+    circle_ok: torch.Tensor
+    active: torch.Tensor
+    end_kind: torch.Tensor
+    entry_slot: torch.Tensor
+    steps: torch.Tensor
+
+
+def make_frontier_wide(cwords, rcwords, dirs, forced, active,
+                       circle_ok) -> FrontierW:
+    """Seeds from canonical words [4, W] and their revcomp words; dirs as
+    make_frontier's."""
+    fwd = WD.wselect(dirs == 0, cwords, rcwords)
+    rc = WD.wselect(dirs == 0, rcwords, cwords)
+    n = fwd.shape[1]
+    full = lambda v: torch.full((n,), v, dtype=torch.int64,
+                                device=fwd.device)
+    return FrontierW(
+        fwd=fwd, rc=rc, t0=fwd, forced=forced.to(torch.int64),
+        circle_ok=circle_ok.bool(), active=active.bool(),
+        end_kind=full(RUNNING), entry_slot=full(-1), steps=full(0))
+
+
+def _wide_children(f, r, k: int, lead: int):
+    """The 4 right extensions of frames [4, *s] as [4 words, 4 bases,
+    *s], with the canonical keys [4, *s] and orientation of each."""
+    b = torch.arange(4, device=f.device).view((4,) + (1,) * lead)
+    nf, nr = WD.right_ext_wide(f[:, None], r[:, None], b, k)
+    c, cisf = WD.canon_of_wide(nf, nr)
+    khi, klo = WD.fingerprint(c)
+    return nf, nr, khi, klo, cisf
+
+
+def walk_round_wide(cascade: BL.Cascade, junctions: T.Table, fr: FrontierW,
+                    n_steps: int, cfg, junc_fn=None
+                    ) -> Tuple[FrontierW, torch.Tensor]:
+    """walk_round for four-word codes. The reference probes the 4 right
+    extensions in 4 calls; here they are one [4, W] query (the same
+    answers), and the new frame's key and orientation are taken from the
+    chosen extension's instead of being hashed again."""
+    k = cfg.size_kmer
+    solid_fn = lambda chi, clo, m: BL.cascade_solid(cascade, chi, clo, m,
+                                                    cfg)
+    if junc_fn is None:
+        junc_fn = lambda chi, clo, m: T.lookup(
+            junctions, chi, clo, m, shard_bits=cfg.shard_bits)[0]
+    f, r = fr.fwd, fr.rc
+    active, end_kind = fr.active, fr.end_kind
+    entry, steps = fr.entry_slot, fr.steps
+    W = f.shape[1]
+    outs = []
+    for s in range(n_steps):
+        a = active
+        nf4, nr4, khi4, klo4, cisf4 = _wide_children(f, r, k, 1)
+        solid4 = solid_fn(khi4, klo4, a.expand(4, W))   # [4, W]
+        cnt = solid4.sum(0)
+        free = a & (fr.forced < 0) if s == 0 else a
+        dead = free & (cnt == 0)
+        ambig = free & (cnt >= 2)
+        bsel = solid4.to(torch.uint8).argmax(0)         # first solid base
+        if s == 0:
+            bsel = torch.where(fr.forced >= 0, fr.forced, bsel)
+        advance = a & ~dead & ~ambig
+        pbase = WD.wtop_base(f, k)
+        pick = bsel[None]
+        g = pick[None].expand(4, 1, W)
+        f = torch.where(advance, nf4.gather(1, g)[:, 0], f)
+        r = torch.where(advance, nr4.gather(1, g)[:, 0], r)
+        circ = advance & fr.circle_ok & WD.weq(f, fr.t0)
+        at_junc = junc_fn(khi4.gather(0, pick)[0], klo4.gather(0, pick)[0],
+                          advance & ~circ)
+        eslot = entry_slot(cisf4.gather(0, pick)[0], pbase)
+        end_kind = torch.where(dead, END_DEAD, end_kind)
+        end_kind = torch.where(ambig, END_AMBIG, end_kind)
+        end_kind = torch.where(circ, END_CIRCULAR, end_kind)
+        end_kind = torch.where(at_junc, END_JUNCTION, end_kind)
+        entry = torch.where(at_junc, eslot, entry)
+        active = advance & ~circ & ~at_junc
+        outs.append(torch.where(advance, bsel, 255).to(torch.uint8))
+        steps = steps + advance
+    new = fr._replace(fwd=f, rc=r, forced=torch.full_like(fr.forced, -1),
+                      active=active, end_kind=end_kind, entry_slot=entry,
+                      steps=steps)
+    bases = (torch.stack(outs, dim=1) if outs else
+             torch.empty((W, 0), dtype=torch.uint8, device=f.device))
+    return new, bases
+
+
+def resolve_ambiguous_wide(cascade: BL.Cascade, fr: FrontierW, cfg
+                           ) -> FrontierW:
+    """Four-word twin of resolve_ambiguous: the same beam lookahead, lane
+    compaction and tie order (_top_beam)."""
+    k = cfg.size_kmer
+    solid_fn = lambda chi, clo, m: BL.cascade_solid(cascade, chi, clo, m,
+                                                    cfg)
+    amb_all = (fr.end_kind == END_AMBIG) & ~fr.active
+    if not bool(amb_all.any()):
+        return fr
+    CAP = _resolve_cap(fr.forced.shape[0])
+    lanes = torch.sort(amb_all.to(torch.uint8), descending=True,
+                       stable=True).indices[:CAP]
+    amb = amb_all[lanes]
+    # candidate frame [4 words, 4 cand, CAP]
+    cand_f, cand_r, khi, klo, _ = _wide_children(fr.fwd[:, lanes],
+                                                 fr.rc[:, lanes], k, 1)
+    first = solid_fn(khi, klo, amb.expand(4, CAP))
+
+    # beam state [4 words, 4 cand, BEAM, CAP]; slot 0 = the candidate
+    cur_f = cand_f[:, :, None, :].expand(4, 4, BEAM, CAP)
+    cur_r = cand_r[:, :, None, :].expand(4, 4, BEAM, CAP)
+    alive = torch.zeros((4, BEAM, CAP), dtype=torch.bool, device=amb.device)
+    alive[:, 0] = first
+    for _ in range(int(cfg.fp_lookahead)):
+        # children of every beam slot, option = child*BEAM + slot:
+        # [4 words, 4 cand, 4*BEAM, CAP]
+        of, orc, chi, clo, _ = _wide_children(cur_f, cur_r, k, 3)
+        of = of.transpose(1, 2).reshape(4, 4, 4 * BEAM, CAP)
+        orc = orc.transpose(1, 2).reshape(4, 4, 4 * BEAM, CAP)
+        chi = chi.transpose(0, 1).reshape(4, 4 * BEAM, CAP)
+        clo = clo.transpose(0, 1).reshape(4, 4 * BEAM, CAP)
+        s_opt = solid_fn(chi, clo, alive.repeat(1, 4, 1))
+        top = _top_beam(s_opt)                    # [4, BEAM, CAP]
+        g = top[None].expand(4, 4, BEAM, CAP)
+        cur_f, cur_r = of.gather(2, g), orc.gather(2, g)
+        alive = s_opt.gather(1, top)
+    strong4 = (first & alive.any(dim=1)).T        # [CAP, 4]
+    scnt = strong4.sum(-1)
+    resolved = amb & (scnt == 1)
+    if not cfg.break_on_deep_tie:
+        resolved = resolved | (amb & (scnt >= 2))  # see resolve_ambiguous
     return _scatter_resolved(fr, lanes, amb, resolved,
                              strong4.to(torch.uint8).argmax(-1))
 

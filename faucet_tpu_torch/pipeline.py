@@ -6,9 +6,9 @@ is extracted to the host for cleaning and emission. `run_file_mode`
 makes two passes over the reads, `run_streaming` one (insert, then scan,
 each batch). Reads are consumed batch by batch and never stored.
 
-Ported scope: one device, k <= 31, Bloom mode, branch-node junctions,
-paired ends. Exact mode, ext8, wide k, sharding and prune_slots raise
-NotImplementedError naming their ROADMAP.md item.
+Ported scope: one device, k <= 63 (wide codes above 31), Bloom mode,
+branch-node and ext8 junctions, paired ends. Exact mode, sharding and
+prune_slots raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -47,8 +47,6 @@ def check_supported(cfg: Config):
     """Refuse configurations whose features are not ported yet."""
     unported = [
         (cfg.exact, "exact mode"),
-        (cfg.size_kmer > 31, "wide k (k > 31)"),
-        (not cfg.use_node_junctions, "ext8 junction detection"),
         (cfg.n_shards > 1, "dist/ (n_shards > 1)"),
         (cfg.prune_slot_cov > 0, "prune_slots (prune_slot_cov > 0)"),
     ]
@@ -78,17 +76,23 @@ class Pipeline:
         self.metrics = metrics or Metrics(cfg.metrics_file)
         self.cascade = BL.make_cascade(cfg, dev)
         # branch-node cascade: junction detection via 2 node probes per
-        # window (core/nodes.py)
-        self.node_cascade = BL.make_cascade(cfg.node_view(), dev)
+        # window (core/nodes.py) instead of the 8-way extension probe
+        self.node_cascade = (BL.make_cascade(cfg.node_view(), dev)
+                             if cfg.use_node_junctions else None)
+        # wide k-mers (k > 31) store their 4 canonical code words as a
+        # table value, so walks can seed from fingerprint-keyed entries;
+        # int64 holding uint32 words, so "max" keeps the unsigned order
+        wspec = (((4,), torch.int64),) if cfg.wide else ()
         self.junctions = T.make(
-            cfg.junction_cap, (((8,), torch.int32), ((8,), torch.int32)),
-            device=dev)
-        self.sinks = T.make(cfg.sink_cap, (((), torch.int32),), device=dev)
+            cfg.junction_cap,
+            (((8,), torch.int32), ((8,), torch.int32)) + wspec, device=dev)
+        self.sinks = T.make(cfg.sink_cap, (((), torch.int32),) + wspec,
+                            device=dev)
         self.pairs = T.make(cfg.pair_cap, (((), torch.int32),), device=dev)
-        # cross-batch junction-update spool: scan batches append; phase
-        # ends flush (core/scan.JSpool)
-        self.jspool = (SC.make_jspool(cfg, dev) if cfg.spool_junctions
-                       else None)
+        # cross-batch junction-update spool (narrow keys): scan batches
+        # append; phase ends flush (core/scan.JSpool)
+        self.jspool = (SC.make_jspool(cfg, dev)
+                       if cfg.spool_junctions and not cfg.wide else None)
 
     def flush_junctions(self):
         """Drain the junction spool into the table (idempotent; called at
@@ -122,9 +126,13 @@ class Pipeline:
         m.stop("load")
 
     def load_batch(self, bases, lens):
-        self.cascade, self.node_cascade, _n_new = SC.load_batch_nodes(
-            self.cascade, self.node_cascade, self._bases(bases),
-            self._lens(lens), cfg=self.cfg)
+        bases, lens_d = self._bases(bases), self._lens(lens)
+        if self.node_cascade is not None:
+            self.cascade, self.node_cascade, _n_new = SC.load_batch_nodes(
+                self.cascade, self.node_cascade, bases, lens_d, cfg=self.cfg)
+        else:
+            self.cascade = SC.load_batch(self.cascade, bases, lens_d,
+                                         cfg=self.cfg)
         self.metrics.add("reads_loaded", int((np.asarray(lens) > 0).sum()))
 
     def _bases(self, bases):
@@ -165,10 +173,14 @@ class Pipeline:
         """Fused single-pass step: insert the batch, then scan it with
         the window solidity the insert pass computed (the scan's own
         window probe disappears)."""
-        bases = self._bases(bases)
-        (self.cascade, self.node_cascade, _n,
-         ws) = SC.load_batch_nodes_s(self.cascade, self.node_cascade,
-                                     bases, self._lens(lens), cfg=self.cfg)
+        bases, lens_d = self._bases(bases), self._lens(lens)
+        if self.node_cascade is not None:
+            (self.cascade, self.node_cascade, _n,
+             ws) = SC.load_batch_nodes_s(self.cascade, self.node_cascade,
+                                         bases, lens_d, cfg=self.cfg)
+        else:
+            self.cascade, ws = SC.load_batch_s(self.cascade, bases, lens_d,
+                                               cfg=self.cfg)
         self.metrics.add("reads_loaded", int((np.asarray(lens) > 0).sum()))
         return self.scan_batch(bases, lens, window_solid=ws)
 

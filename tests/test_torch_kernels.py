@@ -657,3 +657,76 @@ def test_spool_append_on_card(cuda, n_junc):
     assert (na, nb) == (0, 2) and a.cnt == b.cnt == 2 * n_junc
     for f in ("khi", "klo", "sf", "dd"):
         assert torch.equal(getattr(a, f), getattr(b, f).cpu())
+
+
+def _b6_case(rng, case, W):
+    """Positions for B6's edge cases (int64 holding uint32)."""
+    if case == "empty":
+        return np.zeros(0, np.int64)
+    if case == "all_sentinel":
+        return np.full(1000, SENT, np.int64)
+    if case == "past_end":   # half past the filter's last bit
+        return rng.integers(0, 2 * W * 32, 5000)
+    if case == "one_word":   # every position in word 7, many repeats
+        return 7 * 32 + rng.integers(0, 32, 100_000)
+    p = rng.integers(0, W * 32, 4 * 1024 * 1024)   # "4M"
+    p[::9] = SENT
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty", "all_sentinel", "past_end",
+                                  "one_word", "4M"])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_scatter_or_bits_cases_on_card(cuda, case, offset):
+    """B6 (one atomicOr per position) == its plain
+    version bit for bit: empty input, all SENTINEL, positions past the
+    filter's end, every position in one word, 4M positions; each from a
+    view starting `offset` positions into its buffer (1 and 3: off the
+    16-byte grid)."""
+    rng = np.random.default_rng(len(case) * 10 + offset)
+    W = 1 << 17
+    words = CK.words_from_numpy(_filter(rng, W), cuda)
+    buf = TU.u32(np.concatenate([rng.integers(0, W * 32, offset),
+                                 _b6_case(rng, case, W)]), cuda)
+    pos = buf[offset:]
+    before = KS.launches_bits
+    got = KS.scatter_or_bits(words.clone(), pos)
+    want = KS.scatter_or_bits_plain(words.clone(), pos)
+    torch.cuda.synchronize()
+    assert KS.launches_bits == before + (1 if pos.numel() else 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wide_pipeline_cpu_equals_cuda(cuda):
+    """The k = 55 path (wide codes, ext8 junctions): the Pipeline on the
+    CPU (plain versions) and on the card (kernels) gives the same contigs
+    and the same junction and sink tables, code-word columns included."""
+    from faucet_tpu_torch import simulate
+    from faucet_tpu_torch.pipeline import Pipeline
+
+    rng = np.random.default_rng(808)
+    genome = simulate.genome_with_repeats(rng, 2500, n_repeats=2,
+                                          repeat_len=220)
+    reads = simulate.shred(rng, genome, coverage=40, read_len=120,
+                           err_rate=0.005, circular=True)
+    cfg = TConfig(size_kmer=55, max_read_length=120, batch_reads=64,
+                  estimated_kmers=1 << 14, singletons=1 << 14,
+                  junction_capacity=1 << 12, sink_capacity=1 << 14,
+                  fp_rate=0.002)
+    out = []
+    for dev in ("cpu", cuda):
+        p = Pipeline(cfg, device=dev)
+        g = p.run_file_mode(reads, reads)
+        out.append((sorted(g.contigs[i].canonical_seq() for i in g.live()),
+                    [CK.table_to_numpy(t) for t in (p.junctions, p.sinks)]))
+    (ca, ta), (cb, tb) = out
+    assert ca == cb and ca
+    for x, y in zip(ta, tb):
+        for f in ("keys_hi", "keys_lo", "count", "dropped"):
+            np.testing.assert_array_equal(x[f], y[f])
+        assert len(x["vals"]) == len(y["vals"]) and x["vals"][-1].dtype == \
+            np.uint32
+        for u, v in zip(x["vals"], y["vals"]):
+            np.testing.assert_array_equal(u, v)

@@ -69,6 +69,19 @@ assert len(p.clean_graph(p.build()).live()) >= 1
 assert int(p.pairs.count) > 0 and p.pair_counts()
 assert len(Pipeline(pcfg, device="cpu").run_streaming(mates).live()) >= 1
 
+# the k = 55 path (wide codes, ext8 junctions) and ext8 with narrow keys
+wcfg = dataclasses.replace(cfg, size_kmer=55)
+wp = Pipeline(wcfg, device="cpu")
+assert wp.node_cascade is None and wp.jspool is None
+assert len(wp.run_file_mode(reads, reads).live()) >= 1
+assert int(wp.junctions.count) >= 0 and wp.sinks.vals[-1].shape[1:] == (4,)
+assert len(Pipeline(wcfg, device="cpu").run_streaming(reads).live()) >= 1
+ecfg = dataclasses.replace(cfg, junction_detect="ext8")
+assert len(Pipeline(ecfg, device="cpu").run_file_mode(reads, reads).live())
+from faucet_tpu_torch.core import wide as WD
+assert WD.decode_kmer_wide(WD.encode_kmer_wide("ACGT" * 14 + "A"),
+                           57) == "ACGT" * 14 + "A"
+
 # the new kernel modules' plain versions
 from faucet_tpu_torch.core import scan as SC
 from faucet_tpu_torch.kernels import bloom_scatter as KS

@@ -118,22 +118,37 @@ def test_checkpoint_resumes_in_the_other_package(cli_runs, writer):
             (tmp / f"j_two.{ext}").read_bytes()
 
 
+# ported since (wide k, ext8): these flags now run
+_PORTED_FLAGS = (["--junction_detect", "ext8"], ["-size_kmer", "33"])
+
+
 @pytest.mark.parametrize("flags", [
     ["--exact"], ["--junction_detect", "ext8"],
     ["-size_kmer", "33"], ["--n_shards", "2"], ["-second_kmer", "25"],
     ["--coordinator", "localhost:1234"], ["--profile"],
 ])
-def test_cli_unported_flags_exit_nonzero(tmp_path, capsys, flags):
+def test_cli_unported_flags_exit_nonzero(repeat_case, tmp_path, capsys,
+                                         flags):
+    """Flags of unported features exit non-zero naming their ROADMAP.md
+    item; the flags of features ported since assemble on --device cpu."""
+    if flags in _PORTED_FLAGS:
+        simulate.write_fasta(str(tmp_path / "reads.fa"), repeat_case[1])
+        assert tcli.main(_args(tmp_path, "out", "--stream", *flags,
+                               "--device", "cpu")) == 0
+        assert (tmp_path / "out.fasta").read_text().count(">") >= 1
+        return
     rc = tcli.main(["-read_load_file", "x.fa", "--stream", *flags])
     assert rc != 0
     assert "ROADMAP.md" in capsys.readouterr().err
 
 
-def test_unported_config_and_missing_card_raise():
+def test_unported_config_and_missing_card_raise(repeat_case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TPipeline(_cfg(exact=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TPipeline(_cfg(junction_detect="ext8"), device="cpu")
+    # ext8 is ported: it assembles, with no branch-node cascade
+    p = TPipeline(_cfg(junction_detect="ext8"), device="cpu")
+    assert p.node_cascade is None
+    assert len(p.run_file_mode(repeat_case[1], repeat_case[1]).live()) >= 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TPipeline(_cfg(), device="cuda")
