@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of faucet_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py             # all phases, one card, ~10 minutes
+    python3 chip_smoke.py             # all phases, one card, 10-13 minutes
 
 Phases (each prints its seconds; any failure raises and exits non-zero):
   1 device    torch.cuda must be available; prints the card's name and
@@ -22,8 +22,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               that earlier trees share, so --root runs them there too
   4 parity    the port's Pipeline on ~50 kbp of repeat-genome reads, once
               on the CPU (plain versions) and once on CUDA (kernels), at
-              k = 21 and at k = 55: identical contigs, junction and sink
-              tables (code-word columns included)
+              k = 21 and at k = 55, in Bloom mode and in exact mode, and
+              with prune_slot_cov = 2 at k = 21: identical contigs,
+              junction and sink tables (code-word columns included) and,
+              in exact mode, cascade and node-cascade tables; walk ms
+              per step of each mode on CUDA
   5 scale     2 Mbp genome with repeats, 30x 100 bp reads at 0.5% error,
               bench/scale_run.py's configuration, two-pass file mode:
               18 contigs, N50 221,925, 1,997,960 bases (the record
@@ -36,19 +39,36 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               genome as 30x 150 bp reads, two-pass file mode: the
               reference's record WIDE_RECORD, >= 99% genome-true; B1 lanes
               per scan batch, peak device memory
+  6c dualk    configuration 2 (BASELINE.md): phase 5's k = 31 graph (built
+              here if phase 5 did not run), chunked to 100 bp
+              (contig_chunks), then a second pass at k = 55 over the
+              reads and the chunks, as the CLI's -second_kmer runs it: the
+              reference's record DUALK_RECORD, >= 99% genome-true; chunk
+              count, phase seconds, walk ms per step, peak device memory
+  6d          (with phase 3) B1, B2 and B7 against their plain versions
+              at the second pass's own shapes and live shares, from a
+              census of its load and scan: the window and 8-way extension
+              probes (8,192 x 46, 8,192 x 46 x 8), the load batch (376,832
+              keys) into its filters, the compaction at cap = N
   7 cli       python -m faucet_tpu_torch.cli on 0.5 Mbp of reads, two-pass,
               --stream, --paired_ends two-pass and -size_kmer 55 two-pass:
               FASTA, GFA and both checkpoints written, contigs
               genome-true; two-pass and
               paired cover >= 99% of the genome, and paired equals the
-              reference's CLI_PAIRED_RECORD
+              reference's CLI_PAIRED_RECORD; then -size_kmer 31
+              -second_kmer 55 --profile on phase 4's reads, fed on stdin:
+              the spool and second-pass lines, no spool file left,
+              genome-true, and a Chrome trace holding the probe, cascade
+              and compaction kernels (by their names in csrc/)
   8 stream    bench.py's configuration, Pipeline.stream_step over 16
               batches of 8192 reads: load+scan reads/s; then 20 runs in
               ABBA order, the upsert rounds compacted by the kernel or by
               its plain version: identical tables, medians and quartiles
   9 counters  every main-path kernel launched in each of the scale,
-              paired, wide and stream paths (counts set to 0 just before each
-              path and read just after it); device launches of one
+              paired, wide, dualk and stream paths (counts set to 0 just
+              before each path and read just after it); phase 4's exact
+              run at k = 21 on CUDA launches the compaction and no probe
+              or cascade kernel; device launches of one
               membership query, one compaction and one bloom_insert (1
               each) and one cascade insert (at most 3), from
               torch.profiler after the timed phases
@@ -74,7 +94,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ROOT = REPO  # where faucet_tpu_torch is imported from (--root)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 PHASES = ("device", "build", "kernels", "entries", "parity", "scale",
-          "paired", "wide", "cli", "stream", "counters")
+          "paired", "wide", "dualk", "cli", "stream", "counters")
 
 # bench/scale_r5_2mb.json: the reference's 2 Mbp assembly
 SCALE_MBP = 2.0
@@ -92,7 +112,7 @@ PAIRED_RECORD = {"contigs": 18, "n50": 221925, "total": 1997960,
 CLI_MATES_SEED = 8
 CLI_PAIRED_RECORD = {"contigs": 8, "n50": 99741, "total": 499137}
 
-report = {"phases": {}, "launches_by_path": {}}
+report = {"phases": {}, "launches_by_path": {}, "cascade_variants_by_path": {}}
 
 
 def log(msg: str):
@@ -106,6 +126,17 @@ def zero_counts():
     from faucet_tpu_torch.kernels import probe as KP
 
     KP.launches = KC.launches = KCP.launches = 0
+    variants = getattr(KC, "variant_launches", {})
+    variants.update(dict.fromkeys(variants, 0))
+
+
+def read_variants() -> dict:
+    """The cascade launches by the reference's Pallas variant each stands
+    in for: dense (B2), sparse (B3), multi_tile (B4); empty on a tree
+    that does not count them (--root)."""
+    from faucet_tpu_torch.kernels import cascade as KC
+
+    return dict(getattr(KC, "variant_launches", {}))
 
 
 def read_counts() -> dict:
@@ -386,13 +417,22 @@ def run_kernels():
     return res
 
 
-def check_probe(gen, dev, lib):
+# (shape, mask shape, live share): the walk's frame (4 x 8,192 extensions,
+# its [8,192] mask broadcast), the file-mode window probe (8,192 reads x
+# 70 windows), the two stacked E-probes, and the k = 55 scan's window
+# probe (8,192 reads x 96 windows, its mask the valid windows) and
+# extension probe (8,192 x 96 x 8, its mask the unknown lanes, two thirds
+# live as in phase 6b)
+PROBE_CASES = (((4, 8192), (8192,), 0.9), ((573_440,), (573_440,), 0.9),
+               ((1_146_880,), (1_146_880,), 0.9),
+               ((8192, 96), (8192, 96), 0.99),
+               ((8192, 96, 8), (8192, 96, 8), 0.66))
+
+
+def check_probe(gen, dev, lib, cases=PROBE_CASES, prefix="probe_"):
     """bloom_contains_codes (B1), hashing fused, against its plain version
-    on a half-full 4 MB filter (B, n_hash 3): the walk's frame (4 x 8,192
-    extensions, its [8,192] mask broadcast), the file-mode window probe
-    (8,192 reads x 70 windows), the two stacked E-probes, and the k = 55
-    scan's window probe (8,192 reads x 96 windows) and extension probe
-    (8,192 x 96 x 8, its own mask, two thirds live as in phase 6b)."""
+    on a half-full 4 MB filter (B, n_hash 3) at each (shape, mask shape,
+    live share) of `cases`."""
     import torch
 
     from faucet_tpu_torch.kernels import build as KB
@@ -402,13 +442,7 @@ def check_probe(gen, dev, lib):
     words = torch.randint(-(1 << 31), 1 << 31, (1 << (log2_bits - 5),),
                           generator=gen, device=dev,
                           dtype=torch.int64).to(torch.int32)
-    # (shape, mask shape, live share): the k = 55 window probe's mask is
-    # the valid windows, its extension probe's the unknown lanes
-    for shape, mshape, density in (
-            ((4, 8192), (8192,), 0.9), ((573_440,), (573_440,), 0.9),
-            ((1_146_880,), (1_146_880,), 0.9),
-            ((8192, 96), (8192, 96), 0.99),
-            ((8192, 96, 8), (8192, 96, 8), 0.66)):
+    for shape, mshape, density in cases:
         hi, lo = _rand_keys(gen, int(np.prod(shape)), dev)
         hi, lo = hi.view(shape), lo.view(shape)
         mask = torch.rand(mshape, generator=gen, device=dev) < density
@@ -438,7 +472,7 @@ def check_probe(gen, dev, lib):
                        n_live * (HASH_OPS + BIT_OPS * nh))}
         log_kernel(f"bloom_contains_codes {list(shape)} (hit rate "
                    f"{rec['hit_rate']:.3f})", rec)
-        res["probe_" + "x".join(map(str, shape))] = rec
+        res[prefix + "x".join(map(str, shape))] = rec
     return res
 
 
@@ -455,74 +489,7 @@ def check_cascade(gen, dev, lib):
     2**28 / 2**25 bits."""
     import torch
 
-    from faucet_tpu_torch.kernels import build as KB
-    from faucet_tpu_torch.kernels import cascade as KC
-    from faucet_tpu_torch.kernels import probe as KP
-
-    def run(tag, la, lb, nha, nhb, batches):
-        a = torch.zeros((1 << (la - 5),), dtype=torch.int32, device=dev)
-        b = torch.zeros((1 << (lb - 5),), dtype=torch.int32, device=dev)
-        ap, bp = a.clone(), b.clone()
-        recs = []
-        for bi, (hi, lo, live) in enumerate(batches):
-            args = (hi, lo, live, la, lb, 0, nha, nhb)
-            n = hi.shape[0]
-            rec = {"n": n, "live": int(live.sum()), "library_ms": None}
-            # time on copies of the pre-batch state, then apply for real
-            rec["ms"] = cuda_ms(KC.cascade_insert, 10,
-                                setup=lambda: (a.clone(), b.clone()) + args)
-            rec["plain_ms"] = cuda_ms(
-                KC.cascade_insert_plain, 5,
-                setup=lambda: (ap.clone(), bp.clone()) + args)
-            rec["device_ms"] = insert_ms(a.clone(), b.clone(), args)
-            a0, b0 = a.clone(), b.clone()
-            nb, sol = KC.cascade_insert(a, b, *args)
-            nbp, solp = KC.cascade_insert_plain(ap, bp, *args)
-            torch.cuda.synchronize()
-            err = max(int((a.long() - ap.long()).abs().max()),
-                      int((b.long() - bp.long()).abs().max()),
-                      int((nb.int() - nbp.int()).abs().max()),
-                      int((sol.int() - solp.int()).abs().max()))
-            if err:
-                raise AssertionError(f"cascade_insert != plain ({tag}, "
-                                     f"batch {bi})")
-            rec["max_abs_err"] = err
-            # bytes this batch needs: codes of live lanes, mask, flags, each
-            # touched block of A and B read once, each changed block
-            # written once
-            keep = live & (hi != KC.SENTINEL)
-            ba, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], la)
-            bb, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], lb)
-            changed = lambda x, y: int((x != y).view(-1, 16).any(1).sum())
-            n_live = rec["live"]
-            rec.update(bound(
-                3 * n + 16 * n_live + 64 * (n_unique(ba) + n_unique(bb)
-                                            + changed(a, a0)
-                                            + changed(b, b0)),
-                n_live * (HASH_OPS + BIT_OPS * (nha + nhb))))
-            log_kernel(f"cascade_insert {tag} batch {bi} (new_b "
-                       f"{int(nb.sum())}, solid {int(sol.sum())})", rec)
-            recs.append(rec)
-        return recs
-
-    def insert_ms(a, b, args):
-        """The three launches alone, back to back on one batch and one
-        state (the first pass fills A, later ones B: each pass ORs one
-        block per key)."""
-        hi, lo, live, la, lb, sb, nha, nhb = args
-        n = hi.shape[0]
-        n_slots = KC.n_slots_for(n)
-        table = KC._table(dev, n_slots)
-        lanes = torch.empty((n,), dtype=torch.int32, device=dev)
-        nb, sol = (torch.empty((n,), dtype=torch.bool, device=dev)
-                   for _ in range(2))
-        return launch_loop_ms(lambda: KB.check(lib.ft_cascade_insert(
-            a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
-            hi.data_ptr(), lo.data_ptr(), live.data_ptr(), n, la - 9, lb - 9,
-            0, nha, nhb, table.data_ptr(), n_slots, lanes.data_ptr(),
-            nb.data_ptr(), sol.data_ptr(), KB.stream_of(a)), "cascade"),
-            reps=20)
-
+    run = lambda *a: _cascade_case(dev, lib, *a)
     n = 573_440
     pool_hi, pool_lo = _rand_keys(gen, 300_000, dev)
 
@@ -547,22 +514,108 @@ def check_cascade(gen, dev, lib):
     # the k = 55 load batch (8,192 reads x 96 windows) into phase 6b's
     # filters, A 2**28 and B 2**25 bits, n_hash 5/3: keys from a pool of
     # the 2 Mbp genome's ~2 M k-mers, 97% live; and the same lanes 3% live
-    nw, pool = 786_432, 2_000_000
-    whi, wlo = _rand_keys(gen, pool, dev)
-
-    def wide_batch():
-        pick = torch.randint(0, pool, (nw,), generator=gen, device=dev)
-        return (whi[pick], wlo[pick],
-                torch.rand((nw,), generator=gen, device=dev) < 0.97)
-
+    nw = 786_432
     res["cascade_wide_dense_28_25_5_3"] = run(
         "k = 55 dense 2**28/2**25 bits, n_hash 5/3", 28, 25, 5, 3,
-        [wide_batch(), wide_batch()])
+        _pool_batches(gen, dev, nw, 0.97))
     hi, lo = _rand_keys(gen, nw, dev)
     res["cascade_wide_sparse_28_25_5_3"] = run(
         "k = 55 sparse 2**28/2**25 bits, n_hash 5/3", 28, 25, 5, 3,
         [(hi, lo, torch.rand((nw,), generator=gen, device=dev) < 0.03)] * 2)
     return res
+
+
+def _pool_batches(gen, dev, n, live_share, pool=2_000_000):
+    """Two load batches of n keys drawn from a pool of a 2 Mbp genome's
+    ~2 M k-mers, each lane live at live_share."""
+    import torch
+
+    hi, lo = _rand_keys(gen, pool, dev)
+    out = []
+    for _ in range(2):
+        pick = torch.randint(0, pool, (n,), generator=gen, device=dev)
+        out.append((hi[pick], lo[pick],
+                    torch.rand((n,), generator=gen, device=dev) < live_share))
+    return out
+
+
+def _cascade_case(dev, lib, tag, la, lb, nha, nhb, batches):
+    """cascade_insert against cascade_insert_plain over `batches` into
+    filters of 2**la / 2**lb bits, from empty: a record per batch."""
+    import torch
+
+    from faucet_tpu_torch.kernels import cascade as KC
+    from faucet_tpu_torch.kernels import probe as KP
+
+    a = torch.zeros((1 << (la - 5),), dtype=torch.int32, device=dev)
+    b = torch.zeros((1 << (lb - 5),), dtype=torch.int32, device=dev)
+    ap, bp = a.clone(), b.clone()
+    recs = []
+    for bi, (hi, lo, live) in enumerate(batches):
+        args = (hi, lo, live, la, lb, 0, nha, nhb)
+        n = hi.shape[0]
+        rec = {"n": n, "live": int(live.sum()), "library_ms": None}
+        # time on copies of the pre-batch state, then apply for real
+        rec["ms"] = cuda_ms(KC.cascade_insert, 10,
+                            setup=lambda: (a.clone(), b.clone()) + args)
+        rec["plain_ms"] = cuda_ms(
+            KC.cascade_insert_plain, 5,
+            setup=lambda: (ap.clone(), bp.clone()) + args)
+        rec["device_ms"] = _cascade_insert_ms(dev, lib, a.clone(),
+                                              b.clone(), args)
+        a0, b0 = a.clone(), b.clone()
+        nb, sol = KC.cascade_insert(a, b, *args)
+        nbp, solp = KC.cascade_insert_plain(ap, bp, *args)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - ap.long()).abs().max()),
+                  int((b.long() - bp.long()).abs().max()),
+                  int((nb.int() - nbp.int()).abs().max()),
+                  int((sol.int() - solp.int()).abs().max()))
+        if err:
+            raise AssertionError(f"cascade_insert != plain ({tag}, "
+                                 f"batch {bi})")
+        rec["max_abs_err"] = err
+        # bytes this batch needs: codes of live lanes, mask, flags, each
+        # touched block of A and B read once, each changed block
+        # written once
+        keep = live & (hi != KC.SENTINEL)
+        ba, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], la)
+        bb, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], lb)
+        changed = lambda x, y: int((x != y).view(-1, 16).any(1).sum())
+        n_live = rec["live"]
+        rec.update(bound(
+            3 * n + 16 * n_live + 64 * (n_unique(ba) + n_unique(bb)
+                                        + changed(a, a0)
+                                        + changed(b, b0)),
+            n_live * (HASH_OPS + BIT_OPS * (nha + nhb))))
+        log_kernel(f"cascade_insert {tag} batch {bi} (new_b "
+                   f"{int(nb.sum())}, solid {int(sol.sum())})", rec)
+        recs.append(rec)
+    return recs
+
+
+def _cascade_insert_ms(dev, lib, a, b, args):
+    """cascade_insert's three launches alone, back to back on one batch
+    and one state (the first pass fills A, later ones B: each pass ORs one
+    block per key)."""
+    import torch
+
+    from faucet_tpu_torch.kernels import build as KB
+    from faucet_tpu_torch.kernels import cascade as KC
+
+    hi, lo, live, la, lb, sb, nha, nhb = args
+    n = hi.shape[0]
+    n_slots = KC.n_slots_for(n)
+    table = KC._table(dev, n_slots)
+    lanes = torch.empty((n,), dtype=torch.int32, device=dev)
+    nb, sol = (torch.empty((n,), dtype=torch.bool, device=dev)
+               for _ in range(2))
+    return launch_loop_ms(lambda: KB.check(lib.ft_cascade_insert(
+        a.data_ptr(), a.shape[0], b.data_ptr(), b.shape[0],
+        hi.data_ptr(), lo.data_ptr(), live.data_ptr(), n, la - 9, lb - 9,
+        0, nha, nhb, table.data_ptr(), n_slots, lanes.data_ptr(),
+        nb.data_ptr(), sol.data_ptr(), KB.stream_of(a)), "cascade"),
+        reps=20)
 
 
 def _bits_set(gen, n_words, dev):
@@ -652,16 +705,25 @@ def check_scatter(gen, dev, lib):
     return res
 
 
-def check_compact(gen, dev, lib):
-    """mask_indices (B7) against its plain version: cap 8,192 on the scan
-    grid of one file-mode batch (573,440 lanes) at ~1.5% and ~30% live
-    (both counts above cap) and on a spool flush (1,048,576 lanes, ~0.5%
-    live, count below cap); and the callers' shape, cap = N = 573,440
-    (upsert_rounds and the spool append take every live lane in one
-    call), at ~1.5% and ~30% live; and the k = 55 scan grid, cap = N =
-    786,432, at the junction (2.7%) and sink (2.4%) shares phase 6b
-    measures. Beside it, as a yardstick only (the port never calls it),
-    torch.nonzero_static(mask, size=cap) plus the count. Then 1,000 back-to-back calls of changing size and alignment
+# (N, live share, cap): cap 8,192 on the scan grid of one file-mode batch
+# (573,440 lanes) at ~1.5% and ~30% live (both counts above cap) and on a
+# spool flush (1,048,576 lanes, ~0.5% live, count below cap); the callers'
+# shape, cap = N = 573,440 (upsert_rounds and the spool append take every
+# live lane in one call), at ~1.5% and ~30% live; and the k = 55 scan
+# grid, cap = N = 786,432, at the junction (2.7%) and sink (2.4%) shares
+# phase 6b measures
+COMPACT_CASES = ((573_440, 0.015, 8192), (573_440, 0.3, 8192),
+                 (1_048_576, 0.005, 8192), (573_440, 0.015, 573_440),
+                 (573_440, 0.3, 573_440), (786_432, 0.027, 786_432),
+                 (786_432, 0.024, 786_432))
+
+
+def check_compact(gen, dev, lib, cases=COMPACT_CASES, prefix="compact_",
+                  epoch_run: bool = True):
+    """mask_indices (B7) against its plain version at each (N, live share,
+    cap) of `cases`; beside it, as a yardstick only (the port never calls
+    it), torch.nonzero_static(mask, size=cap) plus the count. Then
+    (epoch_run) 1,000 back-to-back calls of changing size and alignment
     with the epoch limit lowered so that it wraps, every 100th call held
     to the plain version."""
     import torch
@@ -669,12 +731,7 @@ def check_compact(gen, dev, lib):
     from faucet_tpu_torch.kernels import compact as KCP
 
     res = {}
-    for n, density, cap in ((573_440, 0.015, 8192), (573_440, 0.3, 8192),
-                            (1_048_576, 0.005, 8192),
-                            (573_440, 0.015, 573_440),
-                            (573_440, 0.3, 573_440),
-                            (786_432, 0.027, 786_432),
-                            (786_432, 0.024, 786_432)):
+    for n, density, cap in cases:
         mask = torch.rand((n,), generator=gen, device=dev) < density
         idx, cnt = KCP.mask_indices(mask, cap)
         pidx, pcnt = KCP.mask_indices_plain(mask, cap)
@@ -707,7 +764,9 @@ def check_compact(gen, dev, lib):
         log(f"    library yardstick, nonzero_static + count: "
             + (f"{rec['library_ms'] * 1e3:.1f} us" if rec["library_ms"]
                is not None else rec["library_note"]))
-        res[f"compact_{n}_{density}_{cap}"] = rec
+        res[f"{prefix}{n}_{density}_{cap}"] = rec
+    if not epoch_run:
+        return res
 
     # epoch reuse: sizes and offsets change from call to call, nothing
     # synchronises in between, and the epoch wraps every 300 calls
@@ -792,49 +851,94 @@ def _table_arrays(t):
             d["dropped"]]
 
 
-@phase("parity")
-def run_parity():
-    """The ~50 kbp repeat genome at k = 21 (branch-node junctions) and at
-    k = 55 (wide codes, ext8 junctions): CPU (plain versions) == CUDA
-    (kernels), contigs and tables, code-word columns included."""
-    from faucet_tpu_torch import Config
+def parity_case():
+    """The ~50 kbp repeat genome (two 200 bp repeats) as 40x of 100 bp
+    reads at 0.5% errors, numpy default_rng(777)."""
     from faucet_tpu_torch import simulate as SIM
-    from faucet_tpu_torch.pipeline import Pipeline
 
     rng = np.random.default_rng(777)
     genome = SIM.genome_with_repeats(rng, 50_000, n_repeats=2,
                                      repeat_len=200)
-    reads = SIM.shred(rng, genome, coverage=40, read_len=100,
-                      err_rate=0.005, circular=True)
-    for k in (21, 55):
+    return genome, SIM.shred(rng, genome, coverage=40, read_len=100,
+                             err_rate=0.005, circular=True)
+
+
+# phase 4's cases: (name, k, Config options)
+PARITY_CASES = (("k21", 21, {}), ("k55", 55, {}),
+                ("exact_k21", 21, {"exact": True}),
+                ("exact_k55", 55, {"exact": True}),
+                ("prune_k21", 21, {"prune_slot_cov": 2}))
+
+
+@phase("parity")
+def run_parity():
+    """The ~50 kbp repeat genome at k = 21 (branch-node junctions) and at
+    k = 55 (wide codes, ext8 junctions), in Bloom mode, in exact mode and
+    (k = 21) with the prune_slots pre-clean: CPU (plain versions) == CUDA
+    (kernels), contigs and tables, code-word columns included, and in
+    exact mode the cascade and node-cascade tables. Each CUDA run's walk
+    is timed; the counts are set to 0 just before the exact k = 21 run on
+    CUDA and read just after it (the "exact" path)."""
+    from faucet_tpu_torch import Config
+    from faucet_tpu_torch.graph import walk as W
+    from faucet_tpu_torch.pipeline import Pipeline
+
+    genome, reads = parity_case()
+    rec = report["phases"]["parity"]
+    for name, k, kw in PARITY_CASES:
         cfg = Config(size_kmer=k, max_read_length=100, batch_reads=2048,
                      estimated_kmers=1 << 16, singletons=1 << 17,
                      junction_capacity=1 << 14, sink_capacity=1 << 17,
-                     fp_rate=0.002)
+                     fp_rate=0.002, **kw)
         out = {}
         for dev in ("cpu", "cuda"):
             t0 = time.perf_counter()
             p = Pipeline(cfg, device=dev)
-            g = p.run_file_mode(reads, reads)
+            walk = "walk_round_wide" if cfg.wide else "walk_round"
+            orig, wrapped, wst = _walk_timer(name=walk)
+            if dev == "cuda":
+                setattr(W, walk, wrapped)
+                if name == "exact_k21":
+                    zero_counts()
+            try:
+                g = p.run_file_mode(reads, reads)
+            finally:
+                setattr(W, walk, orig)
+            if dev == "cuda" and name == "exact_k21":
+                report["launches_by_path"]["exact"] = read_counts()
+            tables = [p.junctions, p.sinks]
+            if cfg.exact:
+                tables += [p.cascade.a_table, p.cascade.b_table]
+                if p.node_cascade is not None:
+                    tables += [p.node_cascade.a_table,
+                               p.node_cascade.b_table]
             out[dev] = (sorted(g.contigs[i].canonical_seq()
                                for i in g.live()),
-                        _table_arrays(p.junctions), _table_arrays(p.sinks))
-            log(f"k={k} {dev}: {len(out[dev][0])} contigs in "
+                        [_table_arrays(t) for t in tables], wst)
+            log(f"{name} {dev}: {len(out[dev][0])} contigs in "
                 f"{time.perf_counter() - t0:.2f} s")
-        (ca, ja, sa), (cb, jb, sb) = out["cpu"], out["cuda"]
+        (ca, ta, _), (cb, tb, wst) = out["cpu"], out["cuda"]
         if ca != cb:
-            raise AssertionError(f"k={k}: CPU and CUDA contig sets differ")
-        if len(ja) != len(jb) or len(sa) != len(sb):
-            raise AssertionError(f"k={k}: table columns differ")
-        for x, y in zip(ja + sa, jb + sb):
+            raise AssertionError(f"{name}: CPU and CUDA contig sets differ")
+        if [len(x) for x in ta] != [len(x) for x in tb]:
+            raise AssertionError(f"{name}: table columns differ")
+        for x, y in zip(sum(ta, []), sum(tb, [])):
             if not np.array_equal(x, y):
-                raise AssertionError(f"k={k}: CPU and CUDA junction/sink "
-                                     "tables differ")
-        frac = genome_true_frac([c for c in cb], genome)
-        log(f"k={k}: identical assemblies: {len(cb)} contigs, "
-            f"{len(ja) - 4} junction value columns, genome-true {frac:.5f}")
-        report["phases"]["parity"][f"k{k}"] = dict(contigs=len(cb),
-                                                  genome_true=frac)
+                raise AssertionError(f"{name}: CPU and CUDA tables differ")
+        frac = genome_true_frac(cb, genome)
+        ms_step = 1e3 * wst["seconds"] / max(wst["steps"], 1)
+        log(f"{name}: identical assemblies and {len(ta)} tables: "
+            f"{len(cb)} contigs, {len(ta[0]) - 4} junction value columns, "
+            f"genome-true {frac:.5f}; CUDA walk {wst['steps']} steps, "
+            f"{ms_step:.3f} ms/step")
+        rec[name] = dict(contigs=len(cb), genome_true=frac, walk=wst,
+                         walk_ms_per_step=ms_step)
+        if frac < 0.99:
+            raise AssertionError(f"{name}: genome-true {frac:.5f} < 0.99")
+    for k in (21, 55):
+        log(f"walk ms/step at k = {k} on CUDA: Bloom "
+            f"{rec[f'k{k}']['walk_ms_per_step']:.3f}, exact "
+            f"{rec[f'exact_k{k}']['walk_ms_per_step']:.3f}")
 
 
 def _walk_timer(profile_round=None, name: str = "walk_round"):
@@ -923,6 +1027,8 @@ def run_scale(profile: bool = False):
         raise AssertionError(f"assembly {got} != record {SCALE_RECORD}")
     if frac < 0.99:
         raise AssertionError(f"genome-true {frac:.5f} < 0.99")
+    # the dualk phase's first pass
+    return genome, reads, cfg, g
 
 
 def _profile_load_batch(p, k: int):
@@ -1081,32 +1187,46 @@ def wide_reads():
 @contextlib.contextmanager
 def _scan_census(st):
     """While open, add up on the device the lanes of every membership
-    query (st: queries, grid lanes, live lanes) and the set lanes of every
-    compaction (st["compact"]: (set lanes, lanes) per call, in call
-    order)."""
+    query (st: queries, grid lanes, live lanes; st["by_shape"]: the same
+    three per query shape), the set lanes of every compaction
+    (st["compact"]: (set lanes, lanes, cap) per call, in call order) and
+    the live lanes of every cascade insert (st["insert"]: (live lanes,
+    lanes) per call)."""
     import torch
 
     from faucet_tpu_torch.core import bloom as BL
     from faucet_tpu_torch.kernels import compact as CP
 
     probe, compact = BL.cascade_solid, CP.mask_indices
+    insert = BL.cascade_insert_nbs
+    st.setdefault("by_shape", {})
+    st.setdefault("insert", [])
 
     def counted(c, khi, klo, mask, cfg):
+        live = mask.expand(khi.shape).sum(dtype=torch.int64)
         st["queries"] += 1
         st["grid"] += khi.numel()
-        st["live"] = st["live"] + mask.expand(khi.shape).sum(
-            dtype=torch.int64)
+        st["live"] = st["live"] + live
+        q = st["by_shape"].setdefault(tuple(khi.shape), [0, 0, 0])
+        q[0], q[1], q[2] = q[0] + 1, q[1] + khi.numel(), q[2] + live
         return probe(c, khi, klo, mask, cfg)
 
     def compacted(mask, cap):
-        st["compact"].append((mask.sum(dtype=torch.int64), mask.numel()))
+        st["compact"].append((mask.sum(dtype=torch.int64), mask.numel(),
+                              cap))
         return compact(mask, cap)
 
+    def inserted(c, khi, klo, mask, cfg, **kw):
+        st["insert"].append((mask.sum(dtype=torch.int64), mask.numel()))
+        return insert(c, khi, klo, mask, cfg, **kw)
+
     BL.cascade_solid, CP.mask_indices = counted, compacted
+    BL.cascade_insert_nbs = inserted
     try:
         yield
     finally:
         BL.cascade_solid, CP.mask_indices = probe, compact
+        BL.cascade_insert_nbs = insert
 
 
 @phase("wide")
@@ -1157,8 +1277,8 @@ def run_wide(profile: bool = False):
     lanes["live"] = int(lanes["live"])
     # per batch the junction lanes are compacted, then the sink lanes
     comp = lanes.pop("compact")
-    share = {name: sum(int(c) for c, _ in comp[i::2])
-             / max(sum(n for _, n in comp[i::2]), 1)
+    share = {name: sum(int(c[0]) for c in comp[i::2])
+             / max(sum(c[1] for c in comp[i::2]), 1)
              for i, name in enumerate(("junction", "sink"))}
     contigs = [g.contigs[i].seq for i in g.live()]
     lens = [len(c) for c in contigs]
@@ -1177,13 +1297,169 @@ def run_wide(profile: bool = False):
         f"{peak / 2**30:.3f} GiB")
     report["phases"]["wide"].update(
         phase_s=ph, walk=wst, walk_ms_per_step=ms_step, genome_true=frac,
-        b1_per_scan_batch={x: lanes[x] / n_batches for x in lanes},
+        b1_per_scan_batch={x: lanes[x] / n_batches
+                           for x in ("queries", "grid", "live")},
         b7_set_share=share,
         peak_bytes=peak, **got)
     if got != WIDE_RECORD:
         raise AssertionError(f"wide {got} != record {WIDE_RECORD}")
     if frac < 0.99:
         raise AssertionError(f"wide genome-true {frac:.5f} < 0.99")
+
+
+# faucet_tpu (the JAX package, on the JAX CPU backend) on scale_reads():
+# the k = 31 two-pass assembly, its contigs chunked by contig_chunks(g,
+# 100, 55), then a k = 55 two-pass run over the reads and the chunks,
+# Bloom mode, ext8 junctions, cleaned (PERF.md)
+DUALK_RECORD = {"contigs": 18, "n50": 221973, "total": 1998560,
+                "junctions": 63739, "sinks": 950421}
+
+
+@phase("dualk")
+def run_dualk(pass1=None):
+    """Configuration 2 (BASELINE.md: k = 31, then k = 55) at full width:
+    phase 5's k = 31 graph (pass1: its genome, reads, cfg and cleaned
+    graph; built here when phase 5 did not run), chunked by contig_chunks to 100 bp, then a second Pipeline at
+    dataclasses.replace(cfg, size_kmer=55) whose load and scan are each fed
+    the read batches and then the chunk batches, as the CLI's -second_kmer
+    does: DUALK_RECORD exactly, >= 99% genome-true."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from faucet_tpu_torch import Metrics
+    from faucet_tpu_torch.graph import walk as W
+    from faucet_tpu_torch.pipeline import Pipeline, batch_iter, contig_chunks
+
+    ph = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        ph[name] = time.perf_counter() - t
+        log(f"  {name}: {ph[name]:.2f} s")
+        return r
+
+    torch.cuda.reset_peak_memory_stats()
+    if pass1 is not None:
+        log("first pass: phase 5's k = 31 graph")
+        genome, reads, cfg, g = pass1
+    else:
+        genome, reads = scale_reads()
+        cfg = scale_config(len(genome), len(reads))
+        p = Pipeline(cfg, Metrics(), device="cuda")
+        g = timed("pass1", lambda: p.run_file_mode(reads, reads))
+        del p
+        lens = [len(g.contigs[i].seq) for i in g.live()]
+        got = {"contigs": len(lens), "n50": n50(lens), "total": sum(lens)}
+        if got != SCALE_RECORD:
+            raise AssertionError(f"pass 1 {got} != record {SCALE_RECORD}")
+    chunks = contig_chunks(g, cfg.max_read_length, 55)
+    cfg2 = dataclasses.replace(cfg, size_kmer=55)
+    assert cfg2.wide and not cfg2.use_node_junctions
+    B = cfg2.batch_reads
+    n_batches = (-(-len(reads) // B), -(-len(chunks) // B))
+    log(f"{len(chunks) // 2} contig chunks (each twice); second pass "
+        f"batches: {n_batches[0]} of reads, {n_batches[1]} of chunks")
+    p2 = Pipeline(cfg2, Metrics(), device="cuda")
+
+    def batches():
+        return itertools.chain(batch_iter(reads, cfg2),
+                               batch_iter(chunks, cfg2))
+
+    orig_w, wrapped, wst = _walk_timer(name="walk_round_wide")
+    W.walk_round_wide = wrapped
+    st = {"queries": 0, "grid": 0, "live": 0, "compact": []}
+    try:
+        with _scan_census(st):
+            timed("load", lambda: p2.load_batches(batches()))
+            timed("scan", lambda: p2.scan_batches(batches()))
+        g2 = timed("graph_build", p2.build)
+        g2 = timed("clean", lambda: p2.clean_graph(g2))
+    finally:
+        W.walk_round_wide = orig_w
+    peak = torch.cuda.max_memory_allocated()
+    contigs = [g2.contigs[i].seq for i in g2.live()]
+    lens = [len(c) for c in contigs]
+    got = {"contigs": len(contigs), "n50": n50(lens), "total": sum(lens),
+           "junctions": int(p2.junctions.count),
+           "sinks": int(p2.sinks.count)}
+    frac = genome_true_frac(contigs, genome)
+    ms_step = 1e3 * wst["seconds"] / max(wst["steps"], 1)
+    log(f"dual-k assembly {got}, genome-true {frac:.5f}; walk: "
+        f"{wst['rounds']} rounds, {wst['steps']} steps timed in "
+        f"{wst['seconds']:.2f} s, {ms_step:.3f} ms/step; peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    shapes = _second_pass_shapes(st, cfg2)
+    log(f"second pass, the kernels' shapes and live shares: {shapes}")
+    report["phases"]["dualk"].update(
+        phase_s=ph, chunks=len(chunks), batches=n_batches, walk=wst,
+        walk_ms_per_step=ms_step, genome_true=frac, peak_bytes=peak,
+        kernel_shapes=shapes, **got)
+    if got != DUALK_RECORD:
+        raise AssertionError(f"dual-k {got} != record {DUALK_RECORD}")
+    if frac < 0.99:
+        raise AssertionError(f"dual-k genome-true {frac:.5f} < 0.99")
+    return shapes
+
+
+def _second_pass_shapes(st, cfg2) -> dict:
+    """What B1, B2 and B7 saw in the dual-k second pass (a census of its
+    load and scan): each probe shape with its live share, the load's lanes
+    per insert and their live share with the filters' sizes and hash
+    counts, and the compacted grid with its cap and the junction and sink
+    shares (per scan batch the junction lanes are compacted, then the sink
+    lanes)."""
+    probes = [(list(shape), q[2].item() / max(q[1], 1))
+              for shape, q in st["by_shape"].items()]
+    ins, comp = st["insert"], st["compact"]
+    if len({n for _, n in ins}) != 1 or len({c[1:] for c in comp}) != 1:
+        raise AssertionError("dual-k second pass: batches of mixed shapes")
+    return {"probe": probes,
+            "insert": {"n": ins[0][1],
+                       "live": sum(int(c) for c, _ in ins)
+                       / sum(n for _, n in ins),
+                       "la": cfg2.bloom_a_bits.bit_length() - 1,
+                       "lb": cfg2.bloom_b_bits.bit_length() - 1,
+                       "nha": cfg2.n_hash_a, "nhb": cfg2.n_hash_b},
+            "compact": {"n": comp[0][1], "cap": comp[0][2],
+                        **{name: sum(int(c[0]) for c in comp[i::2])
+                           / sum(c[1] for c in comp[i::2])
+                           for i, name in enumerate(("junction", "sink"))}}}
+
+
+@phase("dualk_kernels")
+def run_dualk_kernels(shapes):
+    """B1, B2 and B7 against their plain versions at the dual-k second
+    pass's own shapes and live shares (phase 6c's census): its window and
+    8-way extension probes, its load batch into its filters (phase 5's
+    sizes at k = 55: A 2**27 bits, n_hash 7; B 2**25, n_hash 3) from a
+    pool of ~2 M k-mers, and its scan grid's compaction, cap = N, at the
+    junction and sink shares."""
+    import torch
+
+    from faucet_tpu_torch.kernels import build as KB
+
+    lib = KB.library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    res = check_probe(gen, dev, lib, [
+        (tuple(shape), tuple(shape), round(share, 4))
+        for shape, share in shapes["probe"]], prefix="probe_dualk_")
+    ins = shapes["insert"]
+    tag = (f"dual-k pass 2 dense 2**{ins['la']}/2**{ins['lb']} bits, "
+           f"n_hash {ins['nha']}/{ins['nhb']}")
+    res["cascade_dualk"] = _cascade_case(
+        dev, lib, tag, ins["la"], ins["lb"], ins["nha"], ins["nhb"],
+        _pool_batches(gen, dev, ins["n"], round(ins["live"], 4)))
+    cp = shapes["compact"]
+    res.update(check_compact(gen, dev, lib, [
+        (cp["n"], round(cp[x], 4), cp["cap"]) for x in ("junction", "sink")],
+        prefix="compact_dualk_", epoch_run=False))
+    report.setdefault("kernels", {}).update(res)
 
 
 @phase("cli")
@@ -1252,6 +1528,82 @@ def run_cli():
             report["phases"]["cli"][mode] = {
                 "contigs": len(contigs), "bases": total, "genome_true": frac,
                 "seconds": time.perf_counter() - t0}
+        _cli_dualk(d)
+
+
+def _kernel_names() -> dict:
+    """csrc file -> the names of its __global__ functions."""
+    import re
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(\w+)\s*\(")
+    src = os.path.join(ROOT, "faucet_tpu_torch", "csrc")
+    return {f: pat.findall(open(os.path.join(src, f)).read())
+            for f in sorted(os.listdir(src)) if f.endswith(".cu")}
+
+
+def _cli_dualk(d):
+    """-size_kmer 31 -second_kmer 55 --profile on phase 4's reads, the
+    load reads fed on stdin: exit 0, the spool and second-pass lines, no
+    spool file left in TMPDIR, >= 99% genome-true, and a Chrome trace in
+    {prefix}.trace/ holding CUDA kernel events of the probe, cascade and
+    compaction kernels (found by their names in csrc/)."""
+    from faucet_tpu_torch import simulate as SIM
+    from faucet_tpu_torch.out.fasta import read_fasta
+
+    genome, reads = parity_case()
+    fa, prefix = os.path.join(d, "parity.fa"), os.path.join(d, "dualk")
+    tmp = os.path.join(d, "tmp")
+    os.makedirs(tmp)
+    SIM.write_fasta(fa, reads)
+    cmd = [sys.executable, "-m", "faucet_tpu_torch.cli", "-read_load_file",
+           "-", "-read_scan_file", fa, "-size_kmer", "31", "-second_kmer",
+           "55", "-max_read_length", "100", "-estimated_kmers",
+           str(1 << 16), "-singletons", str(1 << 17), "-fp_rate", "0.002",
+           "--batch_reads", "2048", "--profile", "-file_prefix", prefix]
+    t0 = time.perf_counter()
+    with open(fa, "rb") as stdin:
+        r = subprocess.run(cmd, cwd=ROOT, stdin=stdin, capture_output=True,
+                           text=True, timeout=600,
+                           env=dict(os.environ, TMPDIR=tmp))
+    secs = time.perf_counter() - t0
+    if r.returncode:
+        raise RuntimeError(f"cli dualk failed ({r.returncode}):\n"
+                           + r.stderr[-3000:])
+    for line in ("dual-k on a pipe: spooled load reads to ",
+                 "dual-k second pass at k=55", "profile trace in "):
+        if line not in r.stderr:
+            raise AssertionError(f"cli dualk: no {line!r} line")
+    left = [f for f in os.listdir(tmp)
+            if f.startswith("faucet_tpu_torch_spool_")]
+    if left:
+        raise AssertionError(f"cli dualk: spool files left: {left}")
+    contigs = [s for _, s in read_fasta(f"{prefix}.fasta")]
+    frac = genome_true_frac(contigs, genome)
+    trace = os.path.join(f"{prefix}.trace", "trace.json")
+    t1 = time.perf_counter()
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    found = {}
+    for src, names in _kernel_names().items():
+        found[src] = {n: sum(n in e for e in kernels) for n in names}
+    log(f"dualk (stdin, --profile): {len(contigs)} contigs, "
+        f"{sum(map(len, contigs))} bases, genome-true {frac:.5f}, "
+        f"{secs:.2f} s; trace {os.path.getsize(trace)} B, {len(events)} "
+        f"events, {len(kernels)} kernel events (read in "
+        f"{time.perf_counter() - t1:.2f} s): {found}")
+    report["phases"]["cli"]["dualk"] = {
+        "contigs": len(contigs), "bases": sum(map(len, contigs)),
+        "genome_true": frac, "seconds": secs, "trace_events": len(events),
+        "kernel_events": found}
+    if frac < 0.99:
+        raise AssertionError(f"cli dualk: genome-true {frac}")
+    for src in ("probe.cu", "cascade.cu", "compact.cu"):
+        if not any(found[src].values()):
+            raise AssertionError(f"cli dualk: no kernel of {src} in the "
+                                 "trace")
 
 
 @phase("stream")
@@ -1394,46 +1746,80 @@ def launch_census():
         raise AssertionError(f"device launches per call: {rec}")
 
 
-def kernel_line(launches):
+def kernel_line(launches, variants, origin):
+    """One record per TPU kernel (B1-B7). B2, B3 and B4 are the three
+    Pallas variants of cascade_insert_fused, all replaced by
+    csrc/cascade.cu; each record counts the launches that stood in for its
+    variant (kernels/cascade.py variant_launches). The reference takes its
+    multi-tile variant (B4) only for a filter A larger than one tile,
+    which the dual-k path's is not: B4's launches are the wide path's."""
     k = report.get("kernels", {})
     by_path = report["launches_by_path"]
+    by_variant = report["cascade_variants_by_path"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms")
-    entries = ("bloom_insert_codes", "scatter_or_bits")
 
-    def entry(name, source, replaces, key, rows, row):
+    def entry(name, source, replaces, rows, row, count, origin, per_path):
         errs = [r["max_abs_err"] for r in rows]
         e = {"name": name, "route": "cuda",
              "source": f"faucet_tpu_torch/csrc/{source}",
              "replaces": f"faucet_tpu/kernels/{replaces}",
-             "launches": launches.get(key),
-             "launches_from": ("the entries phase (no caller on any "
-                               "path)" if key in entries
-                               else "the wide path (k = 55)"),
+             "launches": count, "launches_from": origin,
              "max_abs_err": max(errs) if errs else None,
              **{x: row.get(x) for x in keys}}
-        if key not in entries:
-            e["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        if per_path is not None:
+            e["launches_by_path"] = per_path
         return e
 
     def rows(prefix):
         return [r for key, v in k.items() if key.startswith(prefix)
                 for r in (v if isinstance(v, list) else [v])]
 
+    def sample(prefix, fallback):
+        """The dual-k pass's record (its largest shape), else fallback."""
+        got = rows(prefix)
+        if not got:
+            return k.get(fallback) or {}
+        return max(got, key=lambda r: int(np.prod(r.get("shape", [1]))))
+
+    first = lambda key: (k.get(key) or [{}])[0]
+    path = lambda key: {p: c[key] for p, c in by_path.items()}
+    variant = lambda v: {p: c.get(v) for p, c in by_variant.items()}
+    entries = "the entries phase (no caller on any path)"
+    cascade_dense = (k.get("cascade_dualk")
+                     or k.get("cascade_dense_27_25_7_3") or [{}])[0]
     return {"kernels": [
-        entry("bloom_contains_codes", "probe.cu", "probe.py:98", "probe",
-              rows("probe"), k.get("probe_4x8192", {})),
-        entry("cascade_insert", "cascade.cu", "cascade.py:470", "cascade",
-              rows("cascade"),
-              (k.get("cascade_wide_dense_28_25_5_3") or [{}])[0]),
+        entry("bloom_contains_codes", "probe.cu", "probe.py:98",
+              rows("probe"), sample("probe_dualk_", "probe_4x8192"),
+              launches.get("probe"), origin, path("probe")),
+        entry("cascade_insert", "cascade.cu", "cascade.py:470",
+              rows("cascade_dense") + rows("cascade_dualk"), cascade_dense,
+              variants.get("dense"), origin, variant("dense")),
+        entry("cascade_insert (sparse lanes)", "cascade.cu",
+              "cascade.py:270",
+              rows("cascade_sparse") + rows("cascade_wide_sparse"),
+              first("cascade_sparse_27_25_3_3"), variants.get("sparse"),
+              origin + ": the node-endpoint inserts of its k = 31 pass",
+              variant("sparse")),
+        entry("cascade_insert (multi-tile filters)", "cascade.cu",
+              "cascade.py:53", rows("cascade_wide_dense"),
+              first("cascade_wide_dense_28_25_5_3"),
+              by_variant.get("wide", {}).get("multi_tile"),
+              "the wide path (k = 55, filter A 2**28 bits): the dual-k "
+              "path's filters fit the reference's one tile",
+              variant("multi_tile")),
         entry("bloom_insert_codes", "bloom_scatter.cu",
-              "bloom_scatter.py:124", "bloom_insert_codes",
-              rows("insert_codes"), k.get("insert_codes_A", {})),
+              "bloom_scatter.py:124", rows("insert_codes"),
+              k.get("insert_codes_A", {}),
+              launches.get("bloom_insert_codes"), entries, None),
         entry("scatter_or_bits", "bloom_scatter.cu", "bloom_scatter.py:166",
-              "scatter_or_bits", rows("scatter_bits"),
-              k.get("scatter_bits", {})),
-        entry("mask_indices", "compact.cu", "compact.py:56", "compact",
-              rows("compact"), k.get("compact_786432_0.027_786432", {}))]}
+              rows("scatter_bits"), k.get("scatter_bits", {}),
+              launches.get("scatter_or_bits"), entries, None),
+        entry("mask_indices", "compact.cu", "compact.py:56",
+              rows("compact"),
+              (rows("compact_dualk_")
+               or [k.get("compact_786432_0.027_786432", {})])[0],
+              launches.get("compact"), origin, path("compact"))]}
 
 
 def main(argv=None) -> int:
@@ -1468,18 +1854,27 @@ def main(argv=None) -> int:
     # each path's launches: counted from just before it to just after it
     # (the stream phase reads its own after its first, counted run)
     by_path = report["launches_by_path"]
+    by_variant = report["cascade_variants_by_path"]
+
+    def counted(path, fn, *a):
+        zero_counts()
+        r = fn(*a)
+        by_path[path], by_variant[path] = read_counts(), read_variants()
+        return r
+
+    pass1, reused = None, False
     if "scale" in want:
-        zero_counts()
-        run_scale(args.profile)
-        by_path["scale"] = read_counts()
+        pass1 = counted("scale", run_scale, args.profile)
     if "paired" in want:
-        zero_counts()
-        run_paired()
-        by_path["paired"] = read_counts()
+        counted("paired", run_paired)
     if "wide" in want:
-        zero_counts()
-        run_wide(args.profile)
-        by_path["wide"] = read_counts()
+        counted("wide", run_wide, args.profile)
+    if "dualk" in want:
+        reused = pass1 is not None
+        shapes = counted("dualk", run_dualk, pass1)
+        pass1 = None  # frees phase 5's reads
+        if "kernels" in want:
+            run_dualk_kernels(shapes)
     if "cli" in want:
         run_cli()
     if "stream" in want:
@@ -1488,28 +1883,50 @@ def main(argv=None) -> int:
     if "counters" in want:
         launch_census()
         for path, counts in by_path.items():
-            if not all(counts.values()):
-                raise AssertionError(f"{path}: a kernel was never launched: "
-                                     f"{counts}")
-    # this slice's path is the wide one; scatter-OR has no caller on
-    # any path: its entry points were driven, and counted, in phase 3b
-    launches = dict(by_path.get("wide", {}))
+            # exact mode takes no Bloom kernel: its cascade is two tables
+            want_on = ({"compact"} if path == "exact" else set(counts))
+            if any(bool(n) != (name in want_on)
+                   for name, n in counts.items()):
+                raise AssertionError(f"{path}: launches {counts}, expected "
+                                     f"{sorted(want_on)} and no other")
+    # this slice's path is the dual-k one: its k = 31 pass is phase 5's
+    # run when phase 6c reused that graph, else phase 6c ran both passes.
+    # Scatter-OR has no caller on any path: its entry points were driven,
+    # and counted, in phase 3b
+    passes = (["scale", "dualk"] if reused
+              else ["dualk"] if "dualk" in by_path else [])
+    origin = ("the dual-k path: its k = 31 pass in phase 5's window, its "
+              "k = 55 pass in phase 6c's" if len(passes) == 2 else
+              "the dual-k path: both passes in phase 6c's window")
+    launches = {x: sum(by_path[p][x] for p in passes)
+                for x in by_path.get("dualk", {})}
+    variants = {x: sum(by_variant[p].get(x, 0) for p in passes)
+                for x in by_variant.get("dualk", {})}
     launches.update(report.get("entry_launches", {}))
-    log(f"[counters] wide path with the entry points: {launches}")
-    if "counters" in want and "entries" in want and "wide" in want and \
-            not all(launches.values()):
-        raise AssertionError(f"a kernel was never launched: {launches}")
+    log(f"[counters] dual-k path with the entry points: {launches}; "
+        f"cascade launches by the reference's variant: {variants}")
+    if "counters" in want and "entries" in want and "dualk" in want:
+        if not all(launches.values()):
+            raise AssertionError(f"a kernel was never launched: {launches}")
+        # the k = 31 pass runs nodes mode (sparse node-endpoint inserts);
+        # only filters over one tile (the wide path's) take multi-tile
+        multi = by_variant.get("wide", {}).get("multi_tile", 1)
+        if variants and not (variants["dense"] and variants["sparse"]
+                             and not variants["multi_tile"] and multi):
+            raise AssertionError(f"cascade variants: dual-k {variants}, "
+                                 f"wide multi-tile {multi}")
 
     import torch
 
     report["launches"] = launches
+    report["cascade_variants"] = variants
     report["seconds"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
     log(f"total {report['seconds']:.1f} s")
     print(smi)
-    print(json.dumps(kernel_line(launches)))
+    print(json.dumps(kernel_line(launches, variants, origin)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

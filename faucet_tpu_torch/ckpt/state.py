@@ -26,6 +26,7 @@ from faucet_tpu_torch.config import Config
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import scan as SC
 from faucet_tpu_torch.core import table as T
+from faucet_tpu_torch.device import resolve_device
 
 
 def _cfg_hash(cfg: Config) -> str:
@@ -170,8 +171,10 @@ def save_bloom(path: str, cfg: Config, cascade: BL.Cascade,
         **_table_arrays("bt", cascade.b_table), **extra)
 
 
-def load_bloom(path: str, cfg: Config, device=None):
-    """Returns (cascade, node_cascade-or-None)."""
+def load_bloom(path: str, cfg: Config, device="cuda"):
+    """Returns (cascade, node_cascade-or-None) on `device` (cuda unless
+    the caller asks for the CPU; without a card a cuda request raises)."""
+    device = resolve_device(device)
     z = np.load(path)
     _check(z, cfg, path)
 
@@ -204,10 +207,11 @@ def save_junctions(path: str, cfg: Config, junctions: T.Table,
         **_table_arrays("s", sinks), **extra)
 
 
-def load_junctions(path: str, cfg: Config, device=None):
-    """Returns (junctions, sinks, pairs-or-None). The pair table rides in
-    the junction checkpoint so a paired-end resume keeps its disentangle
-    evidence."""
+def load_junctions(path: str, cfg: Config, device="cuda"):
+    """Returns (junctions, sinks, pairs-or-None) on `device`, as
+    load_bloom. The pair table rides in the junction checkpoint so a
+    paired-end resume keeps its disentangle evidence."""
+    device = resolve_device(device)
     z = np.load(path)
     _check(z, cfg, path)
     pairs = _table_from("p", z, device) if "p_keys_hi" in z else None

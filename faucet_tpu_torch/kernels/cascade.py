@@ -36,6 +36,14 @@ _KEY_LAST = (1 << 63) - 1  # sort key of masked lanes: after every key
 # kernel launches by cascade_insert, one per call (each call is three
 # device launches; reset and read by chip_smoke.py)
 launches = 0
+# the same launches by the Pallas variant of the reference's
+# cascade_insert_fused that each stands in for (one kernel serves all
+# three here): "sparse" where the caller flags a mostly masked batch
+# (_kernel_sparse), "multi_tile" where filter A is larger than the
+# reference's one tile (_kernel), else "dense" (_kernel_v2)
+variant_launches = {"dense": 0, "sparse": 0, "multi_tile": 0}
+# the reference's one tile: filters A and B together in 22 MiB of VMEM
+_ONE_TILE_WORDS = (22 << 20) // 4
 
 # scratch hash tables, int32[n_slots, 4] (16-byte slots, all ones when
 # empty), by (device, n_slots); each call leaves its table clean
@@ -56,48 +64,71 @@ def _table(device, n_slots: int):
     return t
 
 
-def cascade_insert_plain(a_words, b_words, khi, klo, mask, la: int, lb: int,
-                         shard_bits: int, n_hash_a: int, n_hash_b: int):
-    """Plain torch version of `cascade_insert` (any device): the
-    reference's sort+count formulation. A stable sort groups the batch by
-    key (first occurrence first, dead lanes last); pre-batch A and B are
-    probed at each key's first lane."""
+def group_by_key(khi, klo, mask):
+    """The reference's grouping of a batch by key: a stable sort puts
+    each key's lanes together, first occurrence first, dead lanes last. A
+    lane is live when its mask is set and its hi word is not SENTINEL.
+
+    Returns, in sorted order: sidx (the lane of each position), slive,
+    seg_start (the position of the group's first lane), rep (live group
+    heads) and dup (heads of a group of two or more lanes)."""
     live = mask & (khi != SENTINEL)
-    h1, h2 = hash_pair(khi, klo)
-    block_a, h1r, h2 = PK._block_from_hash(h1, h2, la, shard_bits)
-    block_b, _, _ = PK._block_from_hash(h1, h2, lb, shard_bits)
     key = torch.where(live, u2.sort_key(khi, klo), _KEY_LAST)
     skey, sidx = torch.sort(key, stable=True)
-    ba, bb, r1, r2, slive = (t[sidx] for t in (block_a, block_b, h1r, h2,
-                                                live))
     n = khi.shape[0]
     iota = torch.arange(n, device=khi.device)
     head = torch.ones((n,), dtype=torch.bool, device=khi.device)
     head[1:] = skey[1:] != skey[:-1]
     seg_start = torch.cummax(torch.where(head, iota, 0), dim=0).values
-    rep = head & slive
+    slive = live[sidx]
+    dup = torch.zeros_like(head)
+    dup[:-1] = seg_start[1:] == iota[:-1]
+    return sidx, slive, seg_start, head & slive, dup
+
+
+def lane_flags(sidx, slive, seg_start, add_b, in_a, in_b):
+    """(new_b, solid) per lane, in lane order, from the sorted groups and
+    the pre-batch membership of each group's head: new_b marks the head
+    that first puts its key into B; a lane is solid when its key was in A
+    or B before the batch or occurs earlier in the batch."""
+    iota = torch.arange(sidx.shape[0], device=sidx.device)
+    new_b = torch.zeros_like(slive)
+    new_b[sidx] = add_b & ~in_b
+    solid = torch.zeros_like(slive)
+    solid[sidx] = (in_b[seg_start] | in_a[seg_start] | (iota > seg_start)) \
+        & slive
+    return new_b, solid
+
+
+def cascade_insert_plain(a_words, b_words, khi, klo, mask, la: int, lb: int,
+                         shard_bits: int, n_hash_a: int, n_hash_b: int):
+    """Plain torch version of `cascade_insert` (any device): the
+    reference's sort+count formulation. The batch is grouped by key
+    (`group_by_key`); pre-batch A and B are probed at each key's first
+    lane."""
+    h1, h2 = hash_pair(khi, klo)
+    block_a, h1r, h2 = PK._block_from_hash(h1, h2, la, shard_bits)
+    block_b, _, _ = PK._block_from_hash(h1, h2, lb, shard_bits)
+    sidx, slive, seg_start, rep, dup = group_by_key(khi, klo, mask)
+    ba, bb, r1, r2 = (t[sidx] for t in (block_a, block_b, h1r, h2))
     in_a = PK.bloom_probe_keys_plain(a_words, torch.where(rep, ba, SENTINEL),
                                      r1, r2, n_hash_a)
     in_b = PK.bloom_probe_keys_plain(b_words, torch.where(rep, bb, SENTINEL),
                                      r1, r2, n_hash_b)
-    dup = torch.zeros_like(rep)
-    dup[:-1] = seg_start[1:] == iota[:-1]
     add_b = rep & (in_a | dup)
     add_a = rep & ~in_a
-    new_b = torch.zeros_like(rep)
-    new_b[sidx] = add_b & ~in_b
-    solid = torch.zeros_like(rep)
-    solid[sidx] = (in_b[seg_start] | in_a[seg_start] | (iota > seg_start)) \
-        & slive
     bloom_or_plain(a_words, ba, r1, r2, add_a, n_hash_a)
     bloom_or_plain(b_words, bb, r1, r2, add_b, n_hash_b)
-    return new_b, solid
+    return lane_flags(sidx, slive, seg_start, add_b, in_a, in_b)
 
 
 def cascade_insert(a_words, b_words, khi, klo, mask, la: int, lb: int,
-                   shard_bits: int, n_hash_a: int, n_hash_b: int):
+                   shard_bits: int, n_hash_a: int, n_hash_b: int,
+                   sparse: bool = False):
     """Cascade-insert a batch; updates a_words/b_words in place and
-    returns (new_b, solid) per lane."""
+    returns (new_b, solid) per lane. `sparse` is the reference's hint that
+    the mask is mostly False: the kernel is the same (dead lanes exit at
+    once), and the hint only names the variant the launch is counted as."""
     global launches
     if not a_words.is_cuda:
         return cascade_insert_plain(a_words, b_words, khi, klo, mask, la, lb,
@@ -140,4 +171,14 @@ def cascade_insert(a_words, b_words, khi, klo, mask, la: int, lb: int,
         del _tables[(dev, n_slots)]
         KB.check(code, "cascade_insert")
     launches += 1
+    variant_launches[reference_variant(a_words.shape[0], b_words.shape[0],
+                                       sparse)] += 1
     return new_b, solid
+
+
+def reference_variant(wa: int, wb: int, sparse: bool) -> str:
+    """The key of variant_launches for a call on filters of wa and wb
+    words."""
+    if sparse:
+        return "sparse"
+    return "multi_tile" if wa > _ONE_TILE_WORDS - wb else "dense"

@@ -6,9 +6,12 @@ is extracted to the host for cleaning and emission. `run_file_mode`
 makes two passes over the reads, `run_streaming` one (insert, then scan,
 each batch). Reads are consumed batch by batch and never stored.
 
-Ported scope: one device, k <= 63 (wide codes above 31), Bloom mode,
-branch-node and ext8 junctions, paired ends. Exact mode, sharding and
-prune_slots raise NotImplementedError naming their ROADMAP.md item.
+Ported scope: everything the reference runs on one device: k <= 63
+(wide codes above 31), Bloom and exact mode, branch-node and ext8
+junctions, paired ends, the prune_slots pre-clean, and the chunks of a
+dual-k second pass (`contig_chunks`; the CLI joins the two passes).
+Sharding (n_shards > 1) raises NotImplementedError naming ROADMAP.md's
+dist/ item.
 """
 from __future__ import annotations
 
@@ -23,9 +26,31 @@ from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import scan as SC
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core.kmer import pack_reads
+from faucet_tpu_torch.device import resolve_device
+from faucet_tpu_torch.dist.sharded import prune_slots
 from faucet_tpu_torch.graph.build import GraphBuilder
 from faucet_tpu_torch.graph.clean import clean
 from faucet_tpu_torch.graph.model import ContigGraph
+
+
+def contig_chunks(g: ContigGraph, max_len: int, k: int) -> List[str]:
+    """Chunk first-pass contigs into read-sized windows for a second pass
+    at larger k (the dual-k workflow, BASELINE.md configuration 2).
+
+    Windows overlap by k-1 so every k-mer of a contig survives chunking;
+    a circular contig is extended by its first k-1 bases; each chunk is
+    emitted twice so the cascade marks its k-mers solid."""
+    out: List[str] = []
+    stride = max(1, max_len - (k - 1))
+    for i in g.live():
+        c = g.contigs[i]
+        seq = c.seq + (c.seq[: k - 1] if c.circular else "")
+        for start in range(0, max(1, len(seq) - k + 1), stride):
+            w = seq[start : start + max_len]
+            if len(w) >= k:
+                out.append(w)
+                out.append(w)
+    return out
 
 
 def batch_iter(reads: Iterable[str], cfg: Config
@@ -44,26 +69,12 @@ def batch_iter(reads: Iterable[str], cfg: Config
 
 
 def check_supported(cfg: Config):
-    """Refuse configurations whose features are not ported yet."""
-    unported = [
-        (cfg.exact, "exact mode"),
-        (cfg.n_shards > 1, "dist/ (n_shards > 1)"),
-        (cfg.prune_slot_cov > 0, "prune_slots (prune_slot_cov > 0)"),
-    ]
-    for bad, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{item} is not ported to faucet_tpu_torch; see ROADMAP.md "
-                f"({item})")
-
-
-def resolve_device(device) -> torch.device:
-    """A CUDA request without a card raises; it never falls back."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda is not "
-                           "available")
-    return device
+    """Refuse configurations whose features are not ported yet: only
+    sharding (dist/)."""
+    if cfg.n_shards > 1:
+        raise NotImplementedError(
+            "dist/ (n_shards > 1) is not ported to faucet_tpu_torch; see "
+            "ROADMAP.md (dist/)")
 
 
 class Pipeline:
@@ -247,6 +258,9 @@ class Pipeline:
         # defensive: callers driving scan_batch directly may not have hit
         # a phase-end flush
         self.flush_junctions()
+        if self.cfg.prune_slot_cov > 0:
+            self.junctions = prune_slots(self.junctions,
+                                         self.cfg.prune_slot_cov)
         m.start("build")
         g = GraphBuilder(self.cfg, self.cascade, self.junctions,
                          self.sinks).build()

@@ -494,6 +494,42 @@ def test_cascade_insert_on_card(cuda, case):
         KC.cascade_insert(a, b, *args[:3], la - 1, lb, 0, 4, 3)
 
 
+@pytest.mark.parametrize("la,lb", [(20, 16), (24, 22), (27, 25), (27, 26),
+                                   (28, 22), (28, 25), (29, 25)])
+def test_cascade_variant_matches_reference_tiling(ref, la, lb):
+    """The variant a launch is counted as is the Pallas kernel the
+    reference takes for the same filters: multi-tile exactly where its
+    tile is smaller than filter A; a sparse hint takes the sparse one."""
+    from faucet_tpu.kernels import cascade as RC
+
+    wa, wb = 1 << (la - 5), 1 << (lb - 5)
+    multi = RC._pick_tile_words(wa, wb) < wa
+    assert KC.reference_variant(wa, wb, False) == (
+        "multi_tile" if multi else "dense")
+    assert KC.reference_variant(wa, wb, True) == "sparse"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("la,lb,sparse,variant", [
+    (27, 25, False, "dense"), (28, 25, False, "multi_tile"),
+    (27, 25, True, "sparse"), (28, 25, True, "sparse")])
+def test_cascade_variant_counts_on_card(cuda, la, lb, sparse, variant):
+    """Each launch is counted once, under the reference's Pallas variant
+    for its call: sparse when flagged, multi-tile when filter A does not
+    fit the reference's one tile with B (2**27 bits beside 2**25 fits,
+    2**28 does not)."""
+    rng = np.random.default_rng(3)
+    hi, lo, mask = _cascade_batch(rng, 4096, "dense")
+    a = torch.zeros((1 << (la - 5),), dtype=torch.int32, device=cuda)
+    b = torch.zeros((1 << (lb - 5),), dtype=torch.int32, device=cuda)
+    before, counts = KC.launches, dict(KC.variant_launches)
+    KC.cascade_insert(a, b, TU.u32(hi, cuda), TU.u32(lo, cuda),
+                      torch.from_numpy(mask).to(cuda), la, lb, 0, 4, 3,
+                      sparse=sparse)
+    counts[variant] += 1
+    assert KC.launches == before + 1 and KC.variant_launches == counts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("log2_bits,n_hash", [(25, 3), (27, 4)])
 def test_scatter_kernels_on_card(cuda, log2_bits, n_hash):
@@ -728,5 +764,53 @@ def test_wide_pipeline_cpu_equals_cuda(cuda):
             np.testing.assert_array_equal(x[f], y[f])
         assert len(x["vals"]) == len(y["vals"]) and x["vals"][-1].dtype == \
             np.uint32
+        for u, v in zip(x["vals"], y["vals"]):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,kw", [(21, dict(exact=True)),
+                                  (55, dict(exact=True)),
+                                  (21, dict(prune_slot_cov=2))])
+def test_exact_and_prune_cpu_equals_cuda(cuda, k, kw):
+    """Exact mode (tables for A and B, and D and E at k = 21) and the
+    prune_slots pre-clean: the Pipeline on the CPU and on the card gives
+    the same contigs and the same tables, cascade tables included. The
+    exact path launches the compaction kernel and no probe or cascade
+    kernel."""
+    from faucet_tpu_torch import simulate
+    from faucet_tpu_torch.pipeline import Pipeline
+
+    rng = np.random.default_rng(777)
+    genome = simulate.genome_with_repeats(rng, 3000, n_repeats=2,
+                                          repeat_len=200)
+    reads = simulate.shred(rng, genome, coverage=40, read_len=100,
+                           err_rate=0.005, circular=True)
+    cfg = TConfig(size_kmer=k, max_read_length=100, batch_reads=64,
+                  estimated_kmers=1 << 14, singletons=1 << 14,
+                  junction_capacity=1 << 13, sink_capacity=1 << 14,
+                  fp_rate=0.002, **kw)
+    out = []
+    for dev in ("cpu", cuda):
+        before = (KP.launches, KC.launches, KCP.launches)
+        p = Pipeline(cfg, device=dev)
+        g = p.run_file_mode(reads, reads)
+        torch.cuda.synchronize()
+        n = [b - a for a, b in zip(before, (KP.launches, KC.launches,
+                                            KCP.launches))]
+        tables = [p.junctions, p.sinks]
+        if cfg.exact:
+            tables += [p.cascade.a_table, p.cascade.b_table]
+            if p.node_cascade is not None:
+                tables += [p.node_cascade.a_table, p.node_cascade.b_table]
+        out.append((sorted(g.contigs[i].canonical_seq() for i in g.live()),
+                    [CK.table_to_numpy(t) for t in tables], n))
+    (ca, ta, na), (cb, tb, nb) = out
+    assert ca == cb and ca
+    assert na == [0, 0, 0] and nb[2] > 0
+    assert (nb[0] == 0 and nb[1] == 0) == cfg.exact
+    for x, y in zip(ta, tb):
+        for f in ("keys_hi", "keys_lo", "count", "dropped"):
+            np.testing.assert_array_equal(x[f], y[f])
         for u, v in zip(x["vals"], y["vals"]):
             np.testing.assert_array_equal(u, v)

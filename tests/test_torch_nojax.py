@@ -2,9 +2,10 @@
 imports nothing of faucet_tpu.
 
 A subprocess blocks jax, jaxlib and the faucet_tpu package with a
-sys.meta_path finder, imports every module of the port and chip_smoke.py,
-and assembles a small genome on the CPU: any import of jax or of
-faucet_tpu fails. A scan of the sources rejects import lines of either.
+sys.meta_path finder, imports every module of the port (dist/ included)
+and chip_smoke.py, and assembles a small genome on the CPU in each mode:
+any import of jax or of faucet_tpu fails. A scan of the sources rejects
+import lines of either.
 """
 import dataclasses
 import os
@@ -78,6 +79,12 @@ assert int(wp.junctions.count) >= 0 and wp.sinks.vals[-1].shape[1:] == (4,)
 assert len(Pipeline(wcfg, device="cpu").run_streaming(reads).live()) >= 1
 ecfg = dataclasses.replace(cfg, junction_detect="ext8")
 assert len(Pipeline(ecfg, device="cpu").run_file_mode(reads, reads).live())
+# exact mode with the prune_slots pre-clean, and dual-k's chunks
+assert "faucet_tpu_torch.dist.sharded" in names
+from faucet_tpu_torch.pipeline import contig_chunks
+xcfg = dataclasses.replace(cfg, exact=True, prune_slot_cov=2)
+xg = Pipeline(xcfg, device="cpu").run_file_mode(reads, reads)
+assert len(xg.live()) >= 1 and contig_chunks(xg, 80, 31)
 from faucet_tpu_torch.core import wide as WD
 assert WD.decode_kmer_wide(WD.encode_kmer_wide("ACGT" * 14 + "A"),
                            57) == "ACGT" * 14 + "A"

@@ -118,8 +118,10 @@ def test_checkpoint_resumes_in_the_other_package(cli_runs, writer):
             (tmp / f"j_two.{ext}").read_bytes()
 
 
-# ported since (wide k, ext8): these flags now run
-_PORTED_FLAGS = (["--junction_detect", "ext8"], ["-size_kmer", "33"])
+# ported since (wide k, ext8; exact mode, dual-k, --profile): these
+# flags now run
+_PORTED_FLAGS = (["--junction_detect", "ext8"], ["-size_kmer", "33"],
+                 ["--exact"], ["-second_kmer", "25"], ["--profile"])
 
 
 @pytest.mark.parametrize("flags", [
@@ -144,11 +146,16 @@ def test_cli_unported_flags_exit_nonzero(repeat_case, tmp_path, capsys,
 
 def test_unported_config_and_missing_card_raise(repeat_case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TPipeline(_cfg(exact=True), device="cpu")
+        TPipeline(_cfg(n_shards=2), device="cpu")
     # ext8 is ported: it assembles, with no branch-node cascade
     p = TPipeline(_cfg(junction_detect="ext8"), device="cpu")
     assert p.node_cascade is None
     assert len(p.run_file_mode(repeat_case[1], repeat_case[1]).live()) >= 1
+    # exact mode is ported: A and B are full-size tables
+    p = TPipeline(_cfg(exact=True), device="cpu")
+    assert p.cascade.b_table.capacity == p.cfg.cascade_cap_b
+    assert len(p.run_file_mode(repeat_case[1], repeat_case[1]).live()) >= 1
+    assert int(p.cascade.b_table.count) > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             TPipeline(_cfg(), device="cuda")
