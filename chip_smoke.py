@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of faucet_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-    python3 chip_smoke.py             # all phases, one card, 10-13 minutes
+    python3 chip_smoke.py             # all phases, one card, ~12 minutes
+
+Independent work runs side by side, each part in a process of its own,
+to keep the whole run well inside its time limit: phase 4's CPU runs
+beside its CUDA runs, phase 6b beside phase 6, phase 7's CLI runs (and
+the dist phase's part (d)) together, and the dist phase's part (b)
+beside its part (a). Progress lines, with the seconds since the start,
+go to standard error.
 
 Phases (each prints its seconds; any failure raises and exits non-zero):
   1 device    torch.cuda must be available; prints the card's name and
@@ -21,8 +28,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               then driven and counted, CUDA == CPU; they use only the API
               that earlier trees share, so --root runs them there too
   4 parity    the port's Pipeline on ~50 kbp of repeat-genome reads, once
-              on the CPU (plain versions) and once on CUDA (kernels), at
-              k = 21 and at k = 55, in Bloom mode and in exact mode, and
+              on the CPU (plain versions, in a process of their own) and
+              once on CUDA (kernels), at k = 21 and at k = 55, in Bloom
+              mode and in exact mode, and
               with prune_slot_cov = 2 at k = 21: identical contigs,
               junction and sink tables (code-word columns included) and,
               in exact mode, cascade and node-cascade tables; walk ms
@@ -35,10 +43,11 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               and on CUDA (identical, both phase it); then the 2 Mbp
               genome as 600,000 mate pairs, paired two-pass file mode:
               the reference's record PAIRED_RECORD, >= 99% genome-true
-  6b wide     k = 55 (wide codes, 8-way extension probe) on the same
-              genome as 30x 150 bp reads, two-pass file mode: the
-              reference's record WIDE_RECORD, >= 99% genome-true; B1 lanes
-              per scan batch, peak device memory
+  6b wide     (in a process of its own beside phase 6, with its own
+              launch counts) k = 55 (wide codes, 8-way extension probe)
+              on the same genome as 30x 150 bp reads, two-pass file mode:
+              the reference's record WIDE_RECORD, >= 99% genome-true; B1
+              lanes per scan batch, peak device memory
   6c dualk    configuration 2 (BASELINE.md): phase 5's k = 31 graph (built
               here if phase 5 did not run), chunked to 100 bp
               (contig_chunks), then a second pass at k = 55 over the
@@ -50,7 +59,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               census of its load and scan: the window and 8-way extension
               probes (8,192 x 46, 8,192 x 46 x 8), the load batch (376,832
               keys) into its filters, the compaction at cap = N
-  7 cli       python -m faucet_tpu_torch.cli on 0.5 Mbp of reads, two-pass,
+  7 cli       (its runs all at once, each a process of its own, with part
+              (d) of phase 8b when that phase runs) python -m
+              faucet_tpu_torch.cli on 0.5 Mbp of reads, two-pass,
               --stream, --paired_ends two-pass and -size_kmer 55 two-pass:
               FASTA, GFA and both checkpoints written, contigs
               genome-true; two-pass and
@@ -64,8 +75,16 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               batches of 8192 reads: load+scan reads/s; then 20 runs in
               ABBA order, the upsert rounds compacted by the kernel or by
               its plain version: identical tables, medians and quartiles
+  8b dist     hash-range sharding, one process per shard: (a) the 2 Mbp
+              scale cell at 4 gloo ranks sharing the card (SCALE_RECORD,
+              tables' content = one device's, collectives, routed bytes,
+              walk ms/step, launches per rank), (b) phase 4's cases and
+              the phased repeat at 4 CPU ranks = 4 card ranks, (c) nccl
+              at one rank = Pipeline, (d) the --n_shards 4 CLI on phase
+              7's reads = the reference's sharded FASTA, (e) B1, B2, B7
+              at (a)'s shard shapes (--dist_parts picks parts)
   9 counters  every main-path kernel launched in each of the scale,
-              paired, wide, dualk and stream paths (counts set to 0 just
+              paired, wide, dualk, stream and dist paths (counts set to 0 just
               before each path and read just after it); phase 4's exact
               run at k = 21 on CUDA launches the compaction and no probe
               or cascade kernel; device launches of one
@@ -81,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -94,7 +114,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ROOT = REPO  # where faucet_tpu_torch is imported from (--root)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 PHASES = ("device", "build", "kernels", "entries", "parity", "scale",
-          "paired", "wide", "dualk", "cli", "stream", "counters")
+          "paired", "wide", "dualk", "cli", "stream", "dist", "counters")
 
 # bench/scale_r5_2mb.json: the reference's 2 Mbp assembly
 SCALE_MBP = 2.0
@@ -115,8 +135,21 @@ CLI_PAIRED_RECORD = {"contigs": 8, "n50": 99741, "total": 499137}
 report = {"phases": {}, "launches_by_path": {}, "cascade_variants_by_path": {}}
 
 
+T_START = time.perf_counter()
+
+
+LOG_TAG = ""  # prefixes the lines of a phase run in a process of its own
+
+
 def log(msg: str):
-    print(msg, flush=True)
+    print(LOG_TAG + msg, flush=True)
+
+
+def note(msg: str):
+    """A progress line on standard error, with the seconds since the
+    start: where a run that is stopped got to."""
+    print(f"[smoke {time.perf_counter() - T_START:.1f} s] {msg}",
+          file=sys.stderr, flush=True)
 
 
 def zero_counts():
@@ -152,12 +185,14 @@ def phase(name):
     def wrap(fn):
         def run(*a, **kw):
             log(f"[{name}] start")
+            note(f"{name} start")
             rec = report["phases"].setdefault(name, {})
             t0 = time.perf_counter()
             r = fn(*a, **kw)
             dt = time.perf_counter() - t0
             rec["seconds"] = dt
             log(f"[{name}] done in {dt:.2f} s")
+            note(f"{name} done in {dt:.2f} s")
             return r
         return run
     return wrap
@@ -323,9 +358,22 @@ def run_device():
     info = {"name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda}
+    from faucet_tpu_torch.dist.mesh import usable_cpus
+
+    # the CPUs the ranks and the CLI runs share; torch's own default does
+    # not see a cgroup quota
+    cpus = usable_cpus()
+    if torch.get_num_threads() > cpus:
+        torch.set_num_threads(cpus)
+    info.update(cpu_count=os.cpu_count(), usable_cpus=cpus,
+                torch_threads=torch.get_num_threads(),
+                loadavg=os.getloadavg())
     report["device"] = info
     log(f"torch {info['torch']} cuda {info['cuda']}; "
-        f"{info['count']} device(s)")
+        f"{info['count']} device(s); CPUs: {info['cpu_count']} seen, "
+        f"{cpus} usable, torch threads {info['torch_threads']}, load "
+        f"{info['loadavg']}")
+    note(f"{smi}; {cpus} usable CPUs of {info['cpu_count']}")
     return smi
 
 
@@ -851,6 +899,7 @@ def _table_arrays(t):
             d["dropped"]]
 
 
+@functools.lru_cache(None)
 def parity_case():
     """The ~50 kbp repeat genome (two 200 bp repeats) as 40x of 100 bp
     reads at 0.5% errors, numpy default_rng(777)."""
@@ -870,54 +919,83 @@ PARITY_CASES = (("k21", 21, {}), ("k55", 55, {}),
                 ("prune_k21", 21, {"prune_slot_cov": 2}))
 
 
+def _parity_cfg(k, kw):
+    from faucet_tpu_torch import Config
+
+    return Config(size_kmer=k, max_read_length=100, batch_reads=2048,
+                  estimated_kmers=1 << 16, singletons=1 << 17,
+                  junction_capacity=1 << 14, sink_capacity=1 << 17,
+                  fp_rate=0.002, **kw)
+
+
+def _parity_run(name, k, kw, dev):
+    """One parity case on one device: (sorted canonical contigs, tables
+    as numpy, walk timer record, seconds). The counts are set to 0 just
+    before the exact k = 21 run on CUDA and read just after it (the
+    "exact" path)."""
+    from faucet_tpu_torch.graph import walk as W
+    from faucet_tpu_torch.pipeline import Pipeline
+
+    reads = parity_case()[1]
+    cfg = _parity_cfg(k, kw)
+    t0 = time.perf_counter()
+    p = Pipeline(cfg, device=dev)
+    walk = "walk_round_wide" if cfg.wide else "walk_round"
+    orig, wrapped, wst = _walk_timer(name=walk)
+    if dev == "cuda":
+        setattr(W, walk, wrapped)
+        if name == "exact_k21":
+            zero_counts()
+    try:
+        g = p.run_file_mode(reads, reads)
+    finally:
+        setattr(W, walk, orig)
+    if dev == "cuda" and name == "exact_k21":
+        report["launches_by_path"]["exact"] = read_counts()
+    tables = [p.junctions, p.sinks]
+    if cfg.exact:
+        tables += [p.cascade.a_table, p.cascade.b_table]
+        if p.node_cascade is not None:
+            tables += [p.node_cascade.a_table, p.node_cascade.b_table]
+    return (sorted(g.contigs[i].canonical_seq() for i in g.live()),
+            [_table_arrays(t) for t in tables], dict(wst),
+            time.perf_counter() - t0)
+
+
+def _parity_cpu_runs(root):
+    """Every parity case on the CPU, in a process of its own (run beside
+    the CUDA runs)."""
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return {name: _parity_run(name, k, kw, "cpu")
+            for name, k, kw in PARITY_CASES}
+
+
 @phase("parity")
 def run_parity():
     """The ~50 kbp repeat genome at k = 21 (branch-node junctions) and at
     k = 55 (wide codes, ext8 junctions), in Bloom mode, in exact mode and
     (k = 21) with the prune_slots pre-clean: CPU (plain versions) == CUDA
     (kernels), contigs and tables, code-word columns included, and in
-    exact mode the cascade and node-cascade tables. Each CUDA run's walk
-    is timed; the counts are set to 0 just before the exact k = 21 run on
-    CUDA and read just after it (the "exact" path)."""
-    from faucet_tpu_torch import Config
-    from faucet_tpu_torch.graph import walk as W
-    from faucet_tpu_torch.pipeline import Pipeline
+    exact mode the cascade and node-cascade tables. The CPU runs go in a
+    process of their own beside the CUDA runs; each CUDA run's walk is
+    timed."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
 
-    genome, reads = parity_case()
+    genome = parity_case()[0]
     rec = report["phases"]["parity"]
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        cpu = ex.submit(_parity_cpu_runs, ROOT)
+        cuda = {name: _parity_run(name, k, kw, "cuda")
+                for name, k, kw in PARITY_CASES}
+        cpu = cpu.result(timeout=600)
     for name, k, kw in PARITY_CASES:
-        cfg = Config(size_kmer=k, max_read_length=100, batch_reads=2048,
-                     estimated_kmers=1 << 16, singletons=1 << 17,
-                     junction_capacity=1 << 14, sink_capacity=1 << 17,
-                     fp_rate=0.002, **kw)
-        out = {}
+        out = {"cpu": cpu[name], "cuda": cuda[name]}
         for dev in ("cpu", "cuda"):
-            t0 = time.perf_counter()
-            p = Pipeline(cfg, device=dev)
-            walk = "walk_round_wide" if cfg.wide else "walk_round"
-            orig, wrapped, wst = _walk_timer(name=walk)
-            if dev == "cuda":
-                setattr(W, walk, wrapped)
-                if name == "exact_k21":
-                    zero_counts()
-            try:
-                g = p.run_file_mode(reads, reads)
-            finally:
-                setattr(W, walk, orig)
-            if dev == "cuda" and name == "exact_k21":
-                report["launches_by_path"]["exact"] = read_counts()
-            tables = [p.junctions, p.sinks]
-            if cfg.exact:
-                tables += [p.cascade.a_table, p.cascade.b_table]
-                if p.node_cascade is not None:
-                    tables += [p.node_cascade.a_table,
-                               p.node_cascade.b_table]
-            out[dev] = (sorted(g.contigs[i].canonical_seq()
-                               for i in g.live()),
-                        [_table_arrays(t) for t in tables], wst)
             log(f"{name} {dev}: {len(out[dev][0])} contigs in "
-                f"{time.perf_counter() - t0:.2f} s")
-        (ca, ta, _), (cb, tb, wst) = out["cpu"], out["cuda"]
+                f"{out[dev][3]:.2f} s")
+        (ca, ta, _, _), (cb, tb, wst, _) = out["cpu"], out["cuda"]
         if ca != cb:
             raise AssertionError(f"{name}: CPU and CUDA contig sets differ")
         if [len(x) for x in ta] != [len(x) for x in tb]:
@@ -941,9 +1019,11 @@ def run_parity():
             f"{rec[f'exact_k{k}']['walk_ms_per_step']:.3f}")
 
 
-def _walk_timer(profile_round=None, name: str = "walk_round"):
+def _walk_timer(profile_round=None, name: str = "walk_round",
+                module=None):
     """Wrap graph.walk's round function `name` (walk_round, or
-    walk_round_wide for k > 31) to count rounds/steps and time them (one
+    walk_round_wide for k > 31; or `module`'s, e.g. dist.swalk's
+    walk_round_routed) to count rounds/steps and time them (one
     synchronize per round of 64-256 steps). Round `profile_round` runs
     under the profiler instead and is left out of the counts."""
     import torch
@@ -951,7 +1031,7 @@ def _walk_timer(profile_round=None, name: str = "walk_round"):
     from faucet_tpu_torch.graph import walk as W
 
     st = {"rounds": 0, "steps": 0, "lane_steps": 0, "seconds": 0.0}
-    orig = getattr(W, name)
+    orig = getattr(module or W, name)
 
     def timed(cascade, junctions, fr, n_steps, cfg, **kw):
         st["rounds"] += 1
@@ -969,9 +1049,15 @@ def _walk_timer(profile_round=None, name: str = "walk_round"):
         t0 = time.perf_counter()
         r = orig(cascade, junctions, fr, n_steps, cfg, **kw)
         torch.cuda.synchronize()
-        st["seconds"] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        st["seconds"] += dt
         st["steps"] += n_steps
         st["lane_steps"] += n_steps * fr.steps.shape[0]
+        # steps and seconds by frontier width
+        w = st.setdefault("by_lanes", {}).setdefault(fr.steps.shape[0],
+                                                     [0, 0.0])
+        w[0] += n_steps
+        w[1] += dt
         return r
 
     return orig, timed, st
@@ -1307,6 +1393,20 @@ def run_wide(profile: bool = False):
         raise AssertionError(f"wide genome-true {frac:.5f} < 0.99")
 
 
+def _wide_apart(root, profile: bool, t_start: float):
+    """The wide phase in a process of its own (run beside the paired
+    phase): its record, and its launch counts from just before it to just
+    after it."""
+    global LOG_TAG, T_START
+    LOG_TAG, T_START = "[wide] ", t_start
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    report["phases"]["wide"] = {}
+    zero_counts()
+    run_wide(profile)
+    return report["phases"]["wide"], read_counts(), read_variants()
+
+
 # faucet_tpu (the JAX package, on the JAX CPU backend) on scale_reads():
 # the k = 31 two-pass assembly, its contigs chunked by contig_chunks(g,
 # 100, 55), then a k = 55 two-pass run over the reads and the chunks,
@@ -1462,15 +1562,64 @@ def run_dualk_kernels(shapes):
     report.setdefault("kernels", {}).update(res)
 
 
+CLI_MODES = ("two_pass", "stream", "paired", "wide")
+
+
+def run_together(jobs: dict, d: str, timeout: float):
+    """Start every job at once, each a process of its own in a session of
+    its own, and wait for all. jobs: name -> (command, stdin file or None,
+    extra environment); standard output and error go to files under d.
+    Returns (name -> (return code, stdout, stderr, seconds from the start
+    to its exit), the rank processes still running once all have exited).
+    Every process a job started is stopped before it returns."""
+    import signal
+
+    procs, files = {}, []
+    t0 = time.perf_counter()
+    try:
+        for name, (cmd, stdin, env) in jobs.items():
+            io = [open(os.path.join(d, f"{name}.{x}"), "w")
+                  for x in ("out", "err")]
+            io.append(open(stdin, "rb") if stdin else subprocess.DEVNULL)
+            files += [f for f in io if f is not subprocess.DEVNULL]
+            procs[name] = subprocess.Popen(
+                cmd, cwd=ROOT, stdin=io[2], stdout=io[0], stderr=io[1],
+                env=dict(os.environ, **env), start_new_session=True)
+        done = {}
+        while len(done) < len(procs):
+            for name, p in procs.items():
+                if name not in done and p.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+                    note(f"cli {name}: exit {p.returncode} after "
+                         f"{done[name]:.1f} s")
+            if time.perf_counter() - t0 > timeout:
+                raise RuntimeError(f"cli runs {sorted(set(procs) - set(done))}"
+                                   f" did not finish within {timeout:.0f} s")
+            time.sleep(0.1)
+        left = _spawned_ranks()
+    finally:
+        for p in procs.values():
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        for f in files:
+            f.close()
+    read = lambda name, x: open(os.path.join(d, f"{name}.{x}")).read()
+    return {name: (p.returncode, read(name, "out"), read(name, "err"),
+                   done[name]) for name, p in procs.items()}, left
+
+
 @phase("cli")
-def run_cli():
-    from faucet_tpu_torch import simulate as SIM
+def run_cli(sharded: bool = False):
+    """The CLI runs (CLI_MODES on phase 7's reads and mates, the dual-k
+    --profile run on phase 4's reads, and with `sharded` the dist phase's
+    part (d)) start together, each a process of its own with
+    OMP_NUM_THREADS set to its share of the CPUs, and are checked once
+    all have exited."""
+    from faucet_tpu_torch.dist.mesh import usable_cpus
     from faucet_tpu_torch.out.fasta import read_fasta
 
-    rng = np.random.default_rng(5)
-    genome = SIM.genome_with_repeats(rng, 500_000, n_repeats=4,
-                                     repeat_len=400)
-    reads = shred(SIM, rng, genome, False)
+    genome, reads, SIM = cli_reads()
     # 15x per mate: the same 30x of reads as the unpaired runs
     mates = shred(SIM, np.random.default_rng(CLI_MATES_SEED), genome, True,
                   coverage=15.0)
@@ -1478,8 +1627,9 @@ def run_cli():
         fa, fp = os.path.join(d, "reads.fa"), os.path.join(d, "mates.fa")
         SIM.write_fasta(fa, reads)
         SIM.write_fasta(fp, mates)
+        jobs = {}
         # "wide": -size_kmer 55 (wide codes, ext8 junctions), two-pass
-        for mode in ("two_pass", "stream", "paired", "wide"):
+        for mode in CLI_MODES:
             prefix = os.path.join(d, mode)
             src = fp if mode == "paired" else fa
             k = 55 if mode == "wide" else 31
@@ -1493,12 +1643,22 @@ def run_cli():
             cmd += (["--stream"] if mode == "stream"
                     else ["-read_scan_file", src])
             cmd += ["--paired_ends"] if mode == "paired" else []
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, cwd=ROOT, capture_output=True,
-                               text=True, timeout=600)
-            if r.returncode:
-                raise RuntimeError(f"cli {mode} failed ({r.returncode}):\n"
-                                   + r.stderr[-3000:])
+            jobs[mode] = (cmd, None, {})
+        jobs["dualk"] = _cli_dualk_job(d)
+        if sharded:
+            jobs["sharded"] = (_cli_cmd(fa, os.path.join(d, "sharded"),
+                                        genome, len(reads))
+                               + ["--n_shards", str(DIST_SHARDS)], None, {})
+        threads = str(max(1, usable_cpus() // 4))
+        for job in jobs.values():
+            job[2]["OMP_NUM_THREADS"] = threads
+        res, left = run_together(jobs, d, timeout=900)
+        for mode in CLI_MODES:
+            prefix = os.path.join(d, mode)
+            rc, _, err, secs = res[mode]
+            if rc:
+                raise RuntimeError(f"cli {mode} failed ({rc}):\n"
+                                   + err[-3000:])
             for ext in ("fasta", "gfa", "bloom.npz", "junctions.npz"):
                 if not os.path.getsize(f"{prefix}.{ext}"):
                     raise AssertionError(f"cli {mode}: empty {ext}")
@@ -1509,10 +1669,10 @@ def run_cli():
             contigs = [s for _, s in read_fasta(f"{prefix}.fasta")]
             frac = genome_true_frac(contigs, genome)
             total = sum(len(c) for c in contigs)
-            native = "native C++ reader" in r.stderr
+            native = "native C++ reader" in err
             log(f"{mode}: {len(contigs)} contigs, N50 "
                 f"{n50([len(c) for c in contigs])}, {total} bases, "
-                f"genome-true {frac:.5f}, {time.perf_counter() - t0:.2f} s"
+                f"genome-true {frac:.5f}, {secs:.2f} s"
                 f"{' (native reader)' if native else ''}")
             if frac < 0.99:
                 raise AssertionError(f"cli {mode}: genome-true {frac}")
@@ -1527,8 +1687,18 @@ def run_cli():
                                      f"{CLI_PAIRED_RECORD}")
             report["phases"]["cli"][mode] = {
                 "contigs": len(contigs), "bases": total, "genome_true": frac,
-                "seconds": time.perf_counter() - t0}
-        _cli_dualk(d)
+                "seconds": secs}
+            if mode == "two_pass":  # the dist phase's CLI run matches it
+                CLI_TWO_PASS["fasta"] = open(f"{prefix}.fasta", "rb").read()
+        _cli_dualk_check(d, res["dualk"])
+        if sharded:
+            rc, _, err, secs = res["sharded"]
+            if rc:
+                raise RuntimeError(f"(d) sharded cli failed ({rc}):\n"
+                                   + err[-3000:])
+            DIST_CLI["d"] = _dist_cli_check(
+                open(os.path.join(d, "sharded.fasta"), "rb").read(), secs,
+                left)
 
 
 def _kernel_names() -> dict:
@@ -1542,37 +1712,39 @@ def _kernel_names() -> dict:
             for f in sorted(os.listdir(src)) if f.endswith(".cu")}
 
 
-def _cli_dualk(d):
+def _cli_dualk_job(d):
     """-size_kmer 31 -second_kmer 55 --profile on phase 4's reads, the
-    load reads fed on stdin: exit 0, the spool and second-pass lines, no
-    spool file left in TMPDIR, >= 99% genome-true, and a Chrome trace in
-    {prefix}.trace/ holding CUDA kernel events of the probe, cascade and
-    compaction kernels (found by their names in csrc/)."""
+    load reads fed on stdin, TMPDIR a fresh directory: run_together's
+    job."""
     from faucet_tpu_torch import simulate as SIM
-    from faucet_tpu_torch.out.fasta import read_fasta
 
-    genome, reads = parity_case()
     fa, prefix = os.path.join(d, "parity.fa"), os.path.join(d, "dualk")
     tmp = os.path.join(d, "tmp")
     os.makedirs(tmp)
-    SIM.write_fasta(fa, reads)
+    SIM.write_fasta(fa, parity_case()[1])
     cmd = [sys.executable, "-m", "faucet_tpu_torch.cli", "-read_load_file",
            "-", "-read_scan_file", fa, "-size_kmer", "31", "-second_kmer",
            "55", "-max_read_length", "100", "-estimated_kmers",
            str(1 << 16), "-singletons", str(1 << 17), "-fp_rate", "0.002",
            "--batch_reads", "2048", "--profile", "-file_prefix", prefix]
-    t0 = time.perf_counter()
-    with open(fa, "rb") as stdin:
-        r = subprocess.run(cmd, cwd=ROOT, stdin=stdin, capture_output=True,
-                           text=True, timeout=600,
-                           env=dict(os.environ, TMPDIR=tmp))
-    secs = time.perf_counter() - t0
-    if r.returncode:
-        raise RuntimeError(f"cli dualk failed ({r.returncode}):\n"
-                           + r.stderr[-3000:])
+    return cmd, fa, {"TMPDIR": tmp}
+
+
+def _cli_dualk_check(d, res):
+    """The dual-k run: exit 0, the spool and second-pass lines, no spool
+    file left in TMPDIR, >= 99% genome-true, and a Chrome trace in
+    {prefix}.trace/ holding CUDA kernel events of the probe, cascade and
+    compaction kernels (found by their names in csrc/)."""
+    from faucet_tpu_torch.out.fasta import read_fasta
+
+    genome = parity_case()[0]
+    prefix, tmp = os.path.join(d, "dualk"), os.path.join(d, "tmp")
+    rc, _, err, secs = res
+    if rc:
+        raise RuntimeError(f"cli dualk failed ({rc}):\n" + err[-3000:])
     for line in ("dual-k on a pipe: spooled load reads to ",
                  "dual-k second pass at k=55", "profile trace in "):
-        if line not in r.stderr:
+        if line not in err:
             raise AssertionError(f"cli dualk: no {line!r} line")
     left = [f for f in os.listdir(tmp)
             if f.startswith("faucet_tpu_torch_spool_")]
@@ -1776,8 +1948,9 @@ def kernel_line(launches, variants, origin):
                 for r in (v if isinstance(v, list) else [v])]
 
     def sample(prefix, fallback):
-        """The dual-k pass's record (its largest shape), else fallback."""
-        got = rows(prefix)
+        """The dist path's record (its largest shape), else the dual-k
+        pass's, else fallback."""
+        got = rows("probe_dist_") or rows(prefix)
         if not got:
             return k.get(fallback) or {}
         return max(got, key=lambda r: int(np.prod(r.get("shape", [1]))))
@@ -1786,14 +1959,15 @@ def kernel_line(launches, variants, origin):
     path = lambda key: {p: c[key] for p, c in by_path.items()}
     variant = lambda v: {p: c.get(v) for p, c in by_variant.items()}
     entries = "the entries phase (no caller on any path)"
-    cascade_dense = (k.get("cascade_dualk")
+    cascade_dense = (k.get("cascade_dist") or k.get("cascade_dualk")
                      or k.get("cascade_dense_27_25_7_3") or [{}])[0]
     return {"kernels": [
         entry("bloom_contains_codes", "probe.cu", "probe.py:98",
               rows("probe"), sample("probe_dualk_", "probe_4x8192"),
               launches.get("probe"), origin, path("probe")),
         entry("cascade_insert", "cascade.cu", "cascade.py:470",
-              rows("cascade_dense") + rows("cascade_dualk"), cascade_dense,
+              rows("cascade_dense") + rows("cascade_dualk")
+              + rows("cascade_dist"), cascade_dense,
               variants.get("dense"), origin, variant("dense")),
         entry("cascade_insert (sparse lanes)", "cascade.cu",
               "cascade.py:270",
@@ -1817,9 +1991,533 @@ def kernel_line(launches, variants, origin):
               launches.get("scatter_or_bits"), entries, None),
         entry("mask_indices", "compact.cu", "compact.py:56",
               rows("compact"),
-              (rows("compact_dualk_")
+              (rows("compact_dist_") or rows("compact_dualk_")
                or [k.get("compact_786432_0.027_786432", {})])[0],
               launches.get("compact"), origin, path("compact"))]}
+
+
+# ---- dist: hash-range sharding, one process per shard ---------------------
+
+DIST_SHARDS = 4
+DIST_PARTS = "a,b,c,d,e"
+# the reference's CLI (faucet_tpu, JAX CPU backend, --no_native) with
+# part (d)'s arguments: its FASTA at --n_shards 4 on phase 7's reads. It
+# holds the unsharded run's contig set, one contig reverse-complemented
+# (PERF.md, PR 7)
+CLI_SHARDED_FASTA_SHA256 = ("52b146ad665fe9be6381c1e355f92f4d"
+                            "7f84e498349f0b65076a808b3720f163")
+# phase 7's two-pass FASTA, kept for the dist phase's CLI run (d)
+CLI_TWO_PASS = {}
+# part (d)'s record when the cli phase ran it beside its own runs
+DIST_CLI = {}
+
+
+def _compute_mode() -> str:
+    """The card's compute mode; an exclusive mode lets one process use the
+    card, and the dist phase runs four ranks on it."""
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    log(f"compute mode: {mode}")
+    if "exclusive" in mode.lower():
+        raise RuntimeError(f"compute mode {mode!r}: {DIST_SHARDS} ranks "
+                           "cannot share the card (set it to Default)")
+    return mode
+
+
+def _np_tables(sp, names=("junctions", "sinks")) -> dict:
+    """Global tables (rank slices in rank order) as numpy arrays, TRASH
+    row dropped (collective: every rank calls it)."""
+    from faucet_tpu_torch.dist.sharded import gather_table
+
+    out = {}
+    for name in names:
+        t = gather_table(sp.mesh, getattr(sp, name))
+        out[name] = [a.cpu().numpy() for a in
+                     (t.keys_hi[:-1], t.keys_lo[:-1],
+                      *(v[:-1] for v in t.vals))]
+    return out
+
+
+def _single_tables(p, names=("junctions", "sinks")) -> dict:
+    return {name: [a.cpu().numpy() for a in
+                   (t.keys_hi[:-1], t.keys_lo[:-1],
+                    *(v[:-1] for v in t.vals))]
+            for name in names for t in [getattr(p, name)]}
+
+
+def _table_content(cols) -> dict:
+    """key -> values of a numpy table's occupied rows."""
+    hi, lo = cols[0], cols[1]
+    occ = np.nonzero(hi != -1)[0]
+    return {(int(hi[i]), int(lo[i])): tuple(
+        np.asarray(v[i]).astype(np.int64).tobytes() for v in cols[2:])
+        for i in occ}
+
+
+def _same_tables(a: dict, b: dict):
+    """(slot arrays identical, content identical) over every table."""
+    slots = all(len(a[n]) == len(b[n]) and all(
+        np.array_equal(x, y) for x, y in zip(a[n], b[n])) for n in a)
+    content = all(_table_content(a[n]) == _table_content(b[n]) for n in a)
+    return slots, content
+
+
+def _dist_shapes(st, cfg_local) -> dict:
+    """What B1, B2 and B7 saw on one rank of the sharded load and scan (a
+    census): each probe shape (the lanes an owner answers) with its live
+    share, the dense load insert (the most-live one) with its filters'
+    sizes and hash counts, and the compacted scan grid with its cap and
+    the junction and sink shares."""
+    probes = [(list(shape), q[2].item() / max(q[1], 1))
+              for shape, q in st["by_shape"].items()]
+    ins = [(int(c), n) for c, n in st["insert"]]
+    dense_n = max(ins, key=lambda x: x[0] / max(x[1], 1))[1]
+    dense = [(c, n) for c, n in ins if n == dense_n]
+    comp = [(int(c), n, cap) for c, n, cap in st["compact"]]
+    return {"probe": probes,
+            "insert": {"n": dense_n,
+                       "live": sum(c for c, _ in dense)
+                       / sum(n for _, n in dense),
+                       "la": cfg_local.bloom_a_bits.bit_length() - 1,
+                       "lb": cfg_local.bloom_b_bits.bit_length() - 1,
+                       "nha": cfg_local.n_hash_a, "nhb": cfg_local.n_hash_b},
+            "compact": {"n": comp[0][1], "cap": comp[0][2],
+                        **{name: sum(c[0] for c in comp[i::2])
+                           / sum(c[1] for c in comp[i::2])
+                           for i, name in enumerate(("junction", "sink"))}}}
+
+
+def _dist_scale_rank(mesh):
+    """One rank of part (a): the 2 Mbp scale run at n_shards ranks."""
+    import dataclasses
+
+    import torch
+
+    from faucet_tpu_torch import Metrics
+    from faucet_tpu_torch.dist import swalk as SW
+    from faucet_tpu_torch.dist.sharded import ShardedPipeline
+    from faucet_tpu_torch.pipeline import batch_iter
+
+    dev = mesh.device
+    genome, reads = scale_reads()
+    cfg = dataclasses.replace(scale_config(len(genome), len(reads)),
+                              n_shards=mesh.n_shards)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sp = ShardedPipeline(cfg, mesh, Metrics())
+    ph, coll = {}, {}
+
+    def timed(name, fn):
+        s0 = dict(mesh.stats)
+        mesh.barrier()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        mesh.barrier()
+        ph[name] = time.perf_counter() - t
+        coll[name] = {k: mesh.stats[k] - s0[k] for k in s0}
+        return r
+
+    census = {"queries": 0, "grid": 0, "live": 0, "compact": []}
+    orig, wrapped, wst = _walk_timer(name="walk_round_routed", module=SW)
+    zero_counts()
+    SW.walk_round_routed = wrapped
+    try:
+        with _scan_census(census):
+            timed("load", lambda: sp.load_batches(batch_iter(reads, cfg)))
+            timed("scan", lambda: sp.scan_batches(batch_iter(reads, cfg)))
+        g = timed("graph_build", sp.build)
+        g = timed("clean", lambda: sp.clean_graph(g))
+    finally:
+        SW.walk_round_routed = orig
+    counts, variants = read_counts(), read_variants()
+    out = {"counts": counts, "variants": variants, "phase_s": ph,
+           "collectives": coll, "walk": wst,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "route_bytes": sp.metrics.counters.get("walk_route_bytes", 0),
+           "batches": -(-len(reads) // cfg.batch_reads)}
+    tables = _np_tables(sp)
+    if mesh.rank == 0:
+        out.update(contigs=[g.contigs[i].seq for i in g.live()],
+                   tables=tables, genome=genome,
+                   shapes=_dist_shapes(census, cfg.local_shard()),
+                   metrics=dict(sp.metrics.counters))
+    return out
+
+
+def _dist_parity_configs():
+    """Part (b)'s cases: (name, Config kwargs, input, paired, clean both
+    ways): phase 4's parity config at k = 21 and 55, Bloom and exact; the
+    phased repeat, paired; the k = 21 Bloom run is also cleaned by the
+    halo-exchange cleaner (--distributed_clean)."""
+    parity = dict(max_read_length=100, batch_reads=2048,
+                  estimated_kmers=1 << 16, singletons=1 << 17,
+                  junction_capacity=1 << 14, sink_capacity=1 << 17,
+                  fp_rate=0.002, n_shards=DIST_SHARDS)
+    paired = dict(size_kmer=21, max_read_length=80, batch_reads=128,
+                  estimated_kmers=1 << 15, singletons=1 << 15,
+                  junction_capacity=1 << 13, sink_capacity=1 << 14,
+                  pair_capacity=1 << 14, paired_ends=True,
+                  n_shards=DIST_SHARDS)
+    return [("k21", dict(parity, size_kmer=21), "parity", False, True),
+            ("k55", dict(parity, size_kmer=55), "parity", False, False),
+            ("exact_k21", dict(parity, size_kmer=21, exact=True), "parity",
+             False, False),
+            ("exact_k55", dict(parity, size_kmer=55, exact=True), "parity",
+             False, False),
+            ("paired", paired, "phased", True, False)]
+
+
+def _dist_parity_rank(mesh):
+    """One rank of part (b): every parity case at n_shards ranks. Returns
+    per case the gathered tables (rank 0) and the contig sets (every
+    rank: each builds the graph)."""
+    import copy
+    import dataclasses
+
+    from faucet_tpu_torch import Config, Metrics
+    from faucet_tpu_torch.dist.sharded import ShardedPipeline
+
+    inputs = {"parity": parity_case()[1], "phased": phased_case()[0]}
+    out = {}
+    for name, kw, inp, paired, both_cleans in _dist_parity_configs():
+        t0 = time.perf_counter()
+        reads = inputs[inp]
+        sp = ShardedPipeline(Config(**kw), mesh, Metrics())
+        sp.load_reads(reads)
+        (sp.scan_paired if paired else sp.scan_reads)(reads)
+        g = sp.build()
+        names = ("junctions", "sinks", "pairs") if paired else \
+            ("junctions", "sinks")
+        tables = _np_tables(sp, names)
+        keys = lambda g: sorted(g.contigs[i].canonical_seq()
+                                for i in g.live())
+        rec = {"raw": keys(g), "s": time.perf_counter() - t0}
+        if both_cleans:
+            cfg = sp.cfg
+            sp.cfg = dataclasses.replace(cfg, distributed_clean=True)
+            rec["halo"] = keys(sp.clean_graph(copy.deepcopy(g)))
+            sp.cfg = cfg
+        rec["clean"] = keys(sp.clean_graph(g))
+        if mesh.rank == 0:
+            rec["tables"] = tables
+        out[name] = rec
+    return out
+
+
+def _dist_nccl_rank(mesh):
+    """Part (c): n_shards = 1 over nccl against the plain Pipeline on the
+    same card, phase 4's k = 21 case."""
+    from faucet_tpu_torch import Config, Metrics
+    from faucet_tpu_torch.dist.sharded import ShardedPipeline
+    from faucet_tpu_torch.pipeline import Pipeline
+
+    reads = parity_case()[1]
+    cfg = Config(size_kmer=21, max_read_length=100, batch_reads=2048,
+                 estimated_kmers=1 << 16, singletons=1 << 17,
+                 junction_capacity=1 << 14, sink_capacity=1 << 17,
+                 fp_rate=0.002)
+    sp = ShardedPipeline(cfg, mesh, Metrics())
+    gs = sp.run_file_mode(reads, reads)
+    p = Pipeline(cfg, Metrics(), device=mesh.device)
+    g1 = p.run_file_mode(reads, reads)
+    keys = lambda g: sorted(g.contigs[i].canonical_seq() for i in g.live())
+    slots, content = _same_tables(_np_tables(sp), _single_tables(p))
+    return {"backend": mesh.backend, "contigs_equal": keys(gs) == keys(g1),
+            "contigs": len(keys(gs)), "slots_equal": slots,
+            "content_equal": content, "collectives": dict(mesh.stats)}
+
+
+def background(tag: str, fn, *a, **kw):
+    """Run fn(*a, **kw) in a thread; returns a function that waits for it
+    and returns its result, or raises with `tag` if it raised."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn(*a, **kw)
+        except BaseException as e:
+            box["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def result():
+        t.join()
+        if "error" in box:
+            raise RuntimeError(f"{tag} failed") from box["error"]
+        return box["value"]
+    return result
+
+
+def _spawned_ranks() -> list:
+    """Processes started by multiprocessing's spawn (ranks) still alive."""
+    ps = subprocess.run(["ps", "-eo", "pid,args"], capture_output=True,
+                        text=True, check=True).stdout.splitlines()[1:]
+    return [l.strip() for l in ps if "multiprocessing.spawn" in l
+            and "spawn_main" in l]
+
+
+@phase("dist")
+def run_dist(parts: str = DIST_PARTS):
+    """Hash-range sharding, one process per shard (faucet_tpu_torch/dist).
+    The card's machine has one GPU, so the ranks share it over gloo, each
+    exchange staged through host memory; NCCL is checked with one rank.
+    (a) 2 Mbp at 4 ranks on the card: SCALE_RECORD, genome-true >= 0.99,
+        gathered junction and sink tables equal to a single-device run of
+        the same configuration on the card; seconds per phase, walk ms per
+        step, collectives and routed bytes, Mesh.all_to_all seconds, peak
+        memory and launches per rank.
+    (b) phase 4's ~50 kbp case at k = 21 and 55, Bloom and exact, the
+        phased repeat paired, and --distributed_clean: 4 CPU ranks and 4
+        ranks on the card (both run beside (a)) give identical tables and
+        contig sets.
+    (c) n_shards = 1 over nccl equals the plain Pipeline on the card (run
+        beside (a)'s single-device comparison run).
+    (d) the CLI, --n_shards 4 on phase 7's 0.5 Mbp reads, two-pass (run
+        beside the cli phase's runs when that phase runs): the
+        unsharded run's FASTA, and no rank left running.
+    (e) B1, B2 and B7 against their plain versions at (a)'s shard shapes
+        (its census), as phase 6d."""
+    from faucet_tpu_torch.dist.mesh import spawn, usable_cpus
+
+    want = set(parts.split(","))
+    rec = report["phases"]["dist"]
+    rec["compute_mode"] = _compute_mode()
+    S, cards = DIST_SHARDS, ["cuda:0"] * DIST_SHARDS
+    shapes = None
+    nccl = lambda: spawn(_dist_nccl_rank, 1, devices=["cuda:0"],
+                         backend="nccl", timeout=600)
+    c_rank = None
+    if "b" in want:
+        # (b)'s two sets of ranks run beside (a), one core each
+        t_b = time.perf_counter()
+        b_ranks = {tag: background(
+            f"(b) the {tag} ranks", spawn, _dist_parity_rank, S,
+            devices=devices, backend="gloo", threads=1, timeout=900)
+            for tag, devices in (("cpu", ["cpu"] * S), ("cuda", cards))}
+    if "a" in want:
+        t0 = time.perf_counter()
+        ranks = spawn(_dist_scale_rank, S, devices=cards, backend="gloo",
+                      threads=max(1, usable_cpus() // S), timeout=900)
+        note(f"dist (a) ranks done in {time.perf_counter() - t0:.1f} s")
+        r0 = ranks[0]
+        contigs, genome = r0["contigs"], r0["genome"]
+        lens = [len(c) for c in contigs]
+        got = {"contigs": len(contigs), "n50": n50(lens), "total": sum(lens)}
+        frac = genome_true_frac(contigs, genome)
+        wst = r0["walk"]
+        ms_step = 1e3 * wst["seconds"] / max(wst["steps"], 1)
+        per_rank = [r["counts"] for r in ranks]
+        counts = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+        variants = {k: sum(r["variants"].get(k, 0) for r in ranks)
+                    for k in ranks[0]["variants"]}
+        report["launches_by_path"]["dist"] = counts
+        report["cascade_variants_by_path"]["dist"] = variants
+        a2a_s = [r["collectives"][p]["all_to_all_s"] for r in ranks
+                 for p in ("load", "scan", "graph_build")]
+        steps = max(wst["steps"], 1)
+        batches = r0["batches"]
+        c0 = r0["collectives"]
+        per = {"load_per_batch": {k: v / batches for k, v in
+                                  c0["load"].items()},
+               "scan_per_batch": {k: v / batches for k, v in
+                                  c0["scan"].items()},
+               "walk_per_step": {k: v / steps for k, v in
+                                 c0["graph_build"].items()},
+               "walk_route_bytes_per_step": r0["route_bytes"] / steps}
+        log(f"(a) {S} ranks on one card: assembly {got}, genome-true "
+            f"{frac:.5f}; phases {r0['phase_s']}; walk {wst['steps']} "
+            f"steps, {ms_step:.3f} ms/step; peak GiB per rank "
+            f"{[round(r['peak_gib'], 3) for r in ranks]}")
+        log(f"    rank 0 collectives: {per}")
+        log(f"    walk steps, seconds by frontier lanes per rank: "
+            f"{wst.get('by_lanes')}")
+        log(f"    all_to_all seconds per rank (load+scan+build): "
+            f"{[round(sum(a2a_s[i * 3:i * 3 + 3]), 2) for i in range(S)]}")
+        log(f"    launches per rank {per_rank}, summed {counts}, cascade "
+            f"variants {variants}")
+        # (c) runs beside the single-device run of (a)'s configuration on
+        # the card (load + scan)
+        if "c" in want:
+            c_rank = background("(c)", nccl)
+        single = _dist_single_tables(r0)
+        slots, content = _same_tables(r0["tables"], single)
+        log(f"    gathered tables against the single-device run of the "
+            f"same configuration: slots identical {slots}, content "
+            f"identical {content}")
+        rec["a"] = dict(got, genome_true=frac, phase_s=r0["phase_s"],
+                        walk=wst, walk_ms_per_step=ms_step,
+                        collectives=per, all_to_all_s=a2a_s,
+                        peak_gib=[r["peak_gib"] for r in ranks],
+                        launches_per_rank=per_rank, launches=counts,
+                        tables_slots_equal=slots,
+                        tables_content_equal=content,
+                        metrics=r0["metrics"],
+                        seconds=time.perf_counter() - t0)
+        shapes = r0["shapes"]
+        if got != SCALE_RECORD:
+            raise AssertionError(f"(a) assembly {got} != {SCALE_RECORD}")
+        if frac < 0.99:
+            raise AssertionError(f"(a) genome-true {frac:.5f} < 0.99")
+        # the slot layout may differ where the single device's upsert
+        # rounds group a batch's lanes otherwise (tests/dist/
+        # test_lossless.py:123); what every consumer reads must not
+        if not content:
+            raise AssertionError("(a) tables differ from the single-device "
+                                 "run's")
+        if not all(counts.values()):
+            raise AssertionError(f"(a) a kernel was never launched: "
+                                 f"{counts}")
+    if "b" in want:
+        res = {tag: get() for tag, get in b_ranks.items()}
+        for name, *_ in _dist_parity_configs():
+            a, b = res["cpu"][0][name], res["cuda"][0][name]
+            same = all(r[name][x] == b[x] for r in res["cpu"] + res["cuda"]
+                       for x in ("raw", "clean") + (("halo",) if "halo" in b
+                                                    else ()))
+            slots, content = _same_tables(a["tables"], b["tables"])
+            log(f"(b) {name}: {len(b['clean'])} contigs, every rank CPU = "
+                f"CUDA {same}, tables identical {slots}; CPU {a['s']:.2f} "
+                f"s, CUDA {b['s']:.2f} s")
+            if not (same and slots and content):
+                raise AssertionError(f"(b) {name}: CPU and CUDA differ")
+            rec.setdefault("b", {})[name] = {
+                "contigs": len(b["clean"]), "cpu_s": a["s"],
+                "cuda_s": b["s"]}
+        rec["b_seconds"] = time.perf_counter() - t_b  # (a) included
+    if "c" in want:
+        r = (c_rank or nccl)()[0]
+        log(f"(c) n_shards = 1 over {r['backend']}: {r}")
+        rec["c"] = r
+        if not (r["contigs_equal"] and r["content_equal"]):
+            raise AssertionError("(c) nccl run differs from Pipeline")
+    if "d" in want:
+        rec["d"] = DIST_CLI.get("d") or _dist_cli()
+    if "e" in want and shapes is not None:
+        run_dist_kernels(shapes)
+
+
+def _dist_single_tables(r0) -> dict:
+    """Junction and sink tables of the single-device Pipeline on the card
+    for part (a)'s configuration (load + scan)."""
+    import dataclasses
+
+    from faucet_tpu_torch import Metrics
+    from faucet_tpu_torch.pipeline import Pipeline, batch_iter
+
+    genome, reads = scale_reads()
+    cfg = dataclasses.replace(scale_config(len(genome), len(reads)),
+                              n_shards=DIST_SHARDS)
+    p = Pipeline(cfg, Metrics(), device="cuda")
+    p.load_batches(batch_iter(reads, cfg))
+    p.scan_batches(batch_iter(reads, cfg))
+    return _single_tables(p)
+
+
+def cli_reads():
+    """Phase 7's 0.5 Mbp genome and its 30x of 100 bp reads."""
+    from faucet_tpu_torch import simulate as SIM
+
+    rng = np.random.default_rng(5)
+    genome = SIM.genome_with_repeats(rng, 500_000, n_repeats=4,
+                                     repeat_len=400)
+    return genome, shred(SIM, rng, genome, False), SIM
+
+
+def _cli_cmd(fa, prefix, genome, n_reads):
+    cfg = scale_config(len(genome), n_reads)
+    return [sys.executable, "-m", "faucet_tpu_torch.cli",
+            "-read_load_file", fa, "-read_scan_file", fa, "-size_kmer",
+            "31", "-max_read_length", "100", "-estimated_kmers",
+            str(cfg.estimated_kmers), "-singletons", str(cfg.singletons),
+            "--batch_reads", "8192", "-file_prefix", prefix]
+
+
+def _dist_cli() -> dict:
+    """Part (d) alone (the cli phase did not run it): the CLI at
+    --n_shards 4 on the card, phase 7's reads, after the unsharded run
+    when the cli phase did not run either."""
+    genome, reads, SIM = cli_reads()
+    with tempfile.TemporaryDirectory() as d:
+        fa = os.path.join(d, "reads.fa")
+        SIM.write_fasta(fa, reads)
+        if "fasta" not in CLI_TWO_PASS:
+            r = subprocess.run(_cli_cmd(fa, os.path.join(d, "one"), genome,
+                                        len(reads)), cwd=ROOT,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode:
+                raise RuntimeError("(d) unsharded cli failed:\n"
+                                   + r.stderr[-3000:])
+            CLI_TWO_PASS["fasta"] = open(os.path.join(d, "one.fasta"),
+                                         "rb").read()
+        res, left = run_together({"sharded": (
+            _cli_cmd(fa, os.path.join(d, "sharded"), genome, len(reads))
+            + ["--n_shards", str(DIST_SHARDS)], None, {})}, d, timeout=900)
+        rc, _, err, secs = res["sharded"]
+        if rc:
+            raise RuntimeError(f"(d) sharded cli failed ({rc}):\n"
+                               + err[-3000:])
+        return _dist_cli_check(open(os.path.join(d, "sharded.fasta"),
+                                    "rb").read(), secs, left)
+
+
+def _dist_cli_check(got: bytes, secs: float, left: list) -> dict:
+    """Part (d)'s FASTA: the unsharded run's contig set (orientation
+    aside) and the reference's sharded FASTA bytes; no rank left
+    running once the CLI exited."""
+    import hashlib
+
+    from faucet_tpu_torch.core.kmer import revcomp_seq
+
+    canon = lambda fasta: sorted(min(s, revcomp_seq(s)) for s in (
+        "".join(r.split("\n")[1:]) for r in fasta.decode().split(">")[1:]))
+    same_set = canon(got) == canon(CLI_TWO_PASS["fasta"])
+    digest = hashlib.sha256(got).hexdigest()
+    log(f"(d) cli --n_shards {DIST_SHARDS}: {secs:.2f} s; contig set "
+        f"equal to the unsharded run's {same_set}, bytes equal to it "
+        f"{got == CLI_TWO_PASS['fasta']}, to the reference's sharded "
+        f"FASTA {digest == CLI_SHARDED_FASTA_SHA256}; ranks left "
+        f"running {len(left)}")
+    if not same_set or digest != CLI_SHARDED_FASTA_SHA256:
+        raise AssertionError("(d) sharded CLI FASTA differs")
+    if left:
+        raise AssertionError(f"(d) ranks left running: {left}")
+    return {"seconds": secs, "contig_set_equal": same_set,
+            "sha256": digest}
+
+
+@phase("dist_kernels")
+def run_dist_kernels(shapes):
+    """B1, B2 and B7 against their plain versions at part (a)'s shard
+    shapes and live shares (one rank's census of its load and scan): the
+    owner's received window and node probes, its load insert into its
+    filter slices, its scan grid's compaction."""
+    import torch
+
+    from faucet_tpu_torch.kernels import build as KB
+
+    lib = KB.library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    report["dist_shapes"] = shapes
+    res = check_probe(gen, dev, lib, [
+        (tuple(shape), tuple(shape), round(share, 4))
+        for shape, share in shapes["probe"]], prefix="probe_dist_")
+    ins = shapes["insert"]
+    tag = (f"dist shard dense 2**{ins['la']}/2**{ins['lb']} bits, "
+           f"n_hash {ins['nha']}/{ins['nhb']}")
+    res["cascade_dist"] = _cascade_case(
+        dev, lib, tag, ins["la"], ins["lb"], ins["nha"], ins["nhb"],
+        _pool_batches(gen, dev, ins["n"], round(ins["live"], 4)))
+    cp = shapes["compact"]
+    res.update(check_compact(gen, dev, lib, [
+        (cp["n"], round(cp[x], 4), cp["cap"]) for x in ("junction", "sink")],
+        prefix="compact_dist_", epoch_run=False))
+    report.setdefault("kernels", {}).update(res)
 
 
 def main(argv=None) -> int:
@@ -1830,6 +2528,8 @@ def main(argv=None) -> int:
                     help="also run one load batch, one walk round and 4 "
                          "stream batches under torch.profiler (device busy "
                          "share, launches per walk step)")
+    ap.add_argument("--dist_parts", default=DIST_PARTS,
+                    help="the dist phase's parts to run (a-e)")
     ap.add_argument("--root", default=REPO,
                     help="import faucet_tpu_torch from this checkout "
                          "instead (to compare two trees in one run; their "
@@ -1865,9 +2565,22 @@ def main(argv=None) -> int:
     pass1, reused = None, False
     if "scale" in want:
         pass1 = counted("scale", run_scale, args.profile)
+    # the wide phase runs beside the paired phase, in a process of its own
+    # with its own counts
+    wide = None
+    if "wide" in want and "paired" in want:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        apart = ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"))
+        wide = apart.submit(_wide_apart, ROOT, args.profile, T_START)
     if "paired" in want:
         counted("paired", run_paired)
-    if "wide" in want:
+    if wide is not None:
+        with apart:
+            report["phases"]["wide"], by_path["wide"], by_variant["wide"] = \
+                wide.result(timeout=900)
+    elif "wide" in want:
         counted("wide", run_wide, args.profile)
     if "dualk" in want:
         reused = pass1 is not None
@@ -1876,9 +2589,14 @@ def main(argv=None) -> int:
         if "kernels" in want:
             run_dualk_kernels(shapes)
     if "cli" in want:
-        run_cli()
+        # part (d) of the dist phase runs beside the CLI runs
+        run_cli("dist" in want and "d" in args.dist_parts.split(","))
     if "stream" in want:
         run_stream(profile=args.profile)
+    if "dist" in want:
+        # launches counted in each rank, from just before its run to just
+        # after, and summed over the ranks
+        run_dist(args.dist_parts)
     log(f"[counters] main-path launches by path: {by_path}")
     if "counters" in want:
         launch_census()
@@ -1902,10 +2620,18 @@ def main(argv=None) -> int:
                 for x in by_path.get("dualk", {})}
     variants = {x: sum(by_variant[p].get(x, 0) for p in passes)
                 for x in by_variant.get("dualk", {})}
+    if "dist" in by_path:
+        # this slice's path: the sharded 2 Mbp run, summed over its ranks
+        passes = ["dist"]
+        origin = (f"the dist path: {DIST_SHARDS} ranks on one card "
+                  "(dist phase (a)), summed over the ranks")
+        launches = dict(by_path["dist"])
+        variants = dict(by_variant["dist"])
     launches.update(report.get("entry_launches", {}))
     log(f"[counters] dual-k path with the entry points: {launches}; "
         f"cascade launches by the reference's variant: {variants}")
-    if "counters" in want and "entries" in want and "dualk" in want:
+    if "counters" in want and "entries" in want and (
+            "dualk" in want or "dist" in want):
         if not all(launches.values()):
             raise AssertionError(f"a kernel was never launched: {launches}")
         # the k = 31 pass runs nodes mode (sparse node-endpoint inserts);

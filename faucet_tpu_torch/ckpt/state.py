@@ -69,8 +69,9 @@ def table_from_numpy(t, device=None) -> T.Table:
         a = np.concatenate([a, np.zeros((1,) + a.shape[1:], a.dtype)])
         return torch.from_numpy(a).to(device)
 
-    scalar = lambda a: torch.tensor(int(np.asarray(a)), dtype=torch.int64,
-                                    device=device)
+    # a sharded reference run keeps one counter per shard: their sum
+    scalar = lambda a: torch.tensor(int(np.asarray(a).sum()),
+                                    dtype=torch.int64, device=device)
     return T.Table(keys_hi=keys(t.keys_hi), keys_lo=keys(t.keys_lo),
                    vals=tuple(val(v) for v in t.vals),
                    count=scalar(t.count), dropped=scalar(t.dropped))
@@ -90,8 +91,9 @@ def table_to_numpy(t: T.Table, val_dtypes: Optional[Sequence] = None
             "keys_lo": words_to_numpy(t.keys_lo[:cap]),
             "vals": tuple(v[:cap].cpu().numpy().astype(d)
                           for v, d in zip(t.vals, dts)),
-            "count": np.int32(int(t.count)),
-            "dropped": np.int32(int(t.dropped))}
+            # a sharded run's global table counts per shard, [n_shards]
+            "count": t.count.cpu().numpy().astype(np.int32),
+            "dropped": t.dropped.cpu().numpy().astype(np.int32)}
 
 
 def cascade_from_numpy(c, device=None) -> BL.Cascade:

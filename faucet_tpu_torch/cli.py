@@ -11,10 +11,20 @@
 
 `--platform` becomes `--device` (default cuda). A run that asks for cuda
 where there is none fails; it never falls back to the CPU. `--profile`
-writes a torch.profiler Chrome trace into `{file_prefix}.trace/`. The
-flags of sharding (`--n_shards > 1`, `--distributed_clean`,
-`--coordinator`) exit non-zero naming ROADMAP.md's dist/ item.
+writes a torch.profiler Chrome trace into `{file_prefix}.trace/`.
 Checkpoints are interchangeable with faucet_tpu's.
+
+Sharding: `--n_shards N` (N > 1) starts N ranks, one process per shard
+(dist/mesh.py spawn); rank r runs on cuda:(r % device_count), or on the
+CPU with `--device cpu`. The backend is nccl when every rank has a GPU of
+its own and gloo when ranks share one (or run on the CPU). Multi-host:
+`--coordinator host:port --num_processes P --process_id p` on each host
+starts that host's N / P ranks (global ranks p * N/P + i) and joins them
+to the others through `init_process_group("tcp://host:port")`; each host
+feeds its own reads. Every rank builds and cleans the same graph; global
+rank 0 alone writes the FASTA, GFA, checkpoints (gathered global arrays)
+and metrics. Reads from stdin or a FIFO are spooled to a temporary file
+first, which every rank then reads.
 """
 from __future__ import annotations
 
@@ -65,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(read_scan_file ignored)")
     p.add_argument("--batch_reads", type=int, default=4096)
     p.add_argument("--n_shards", type=int, default=1,
-                   help="only 1 is ported (ROADMAP.md: dist/)")
+                   help="hash-range shards: one process (rank) each")
     p.add_argument("--metrics_file", default=None)
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler Chrome trace into "
@@ -73,7 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min_contig_cov", type=float, default=2.5)
     p.add_argument("--tip_len_factor", type=float, default=2.0)
     p.add_argument("--distributed_clean", action="store_true",
-                   help="not ported (ROADMAP.md: dist/)")
+                   help="sharded runs: clean via the halo-exchange "
+                        "partitioned cleaner (dist/halo.py) instead of "
+                        "the single-host passes")
     p.add_argument("--junction_detect", default="auto",
                    choices=("auto", "nodes", "ext8"),
                    help="auto: nodes for k <= 31, ext8 above")
@@ -85,23 +97,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on (cuda, cuda:1, cpu)")
     p.add_argument("--no_native", action="store_true",
                    help="disable the C++ reader/packer (use pure Python)")
+    # ---- multi-host: per-host input, ranks joined over TCP -------------
     p.add_argument("--coordinator", default=None,
-                   help="not ported (ROADMAP.md: dist/)")
+                   help="multi-host: host:port of the process group's "
+                        "store (init_process_group('tcp://host:port'))")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     return p
 
 
-def unported_flags(a):
-    """(flag, ROADMAP item) for every requested feature not ported."""
-    out = []
-    if a.n_shards > 1:
-        out.append(("--n_shards > 1", "dist/"))
-    if a.distributed_clean:
-        out.append(("--distributed_clean", "dist/"))
-    if a.coordinator:
-        out.append(("--coordinator", "dist/"))
-    return out
+# sharded runs: seconds a rank may wait at one collective, and the whole
+# run's limit (a rank that dies fails the run at once, dist/mesh.py)
+DIST_TIMEOUT_S = 86400.0
 
 
 def config_from_args(a) -> Config:
@@ -115,25 +122,26 @@ def config_from_args(a) -> Config:
         fp_rate=a.fp_rate, two_hash=a.two_hash, exact=a.exact,
         batch_reads=a.batch_reads, metrics_file=a.metrics_file,
         profile=a.profile, min_contig_cov=a.min_contig_cov,
-        tip_len_factor=a.tip_len_factor, junction_detect=a.junction_detect)
+        tip_len_factor=a.tip_len_factor, junction_detect=a.junction_detect,
+        n_shards=a.n_shards, distributed_clean=a.distributed_clean)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    bad = unported_flags(args)
-    if bad:
-        for flag, item in bad:
-            print(f"error: {flag} is not ported to faucet_tpu_torch; see "
-                  f"ROADMAP.md ({item})", file=sys.stderr)
-        return 2
     cfg = config_from_args(args)
+    if args.coordinator or cfg.n_shards > 1:
+        return _main_sharded(args, cfg)
 
     # imports deferred: --help must not pay torch startup
     from faucet_tpu_torch.pipeline import Pipeline
 
     metrics = Metrics(cfg.metrics_file)
     pipe = Pipeline(cfg, metrics, device=args.device)
-    prof = _start_profiler(pipe.device) if cfg.profile else None
+    return _profiled(args, cfg, pipe, pipe.device)
+
+
+def _profiled(args, cfg, pipe, device) -> int:
+    prof = _start_profiler(device) if cfg.profile else None
     try:
         rc = _run(args, cfg, pipe)
     finally:
@@ -146,6 +154,72 @@ def main(argv=None) -> int:
         print(f"[faucet_tpu_torch] profile trace in {prof_dir}",
               file=sys.stderr)
     return rc
+
+
+def _main_sharded(args, cfg) -> int:
+    """Start this host's ranks (dist/mesh.py spawn) and return global rank
+    0's exit code (on the other hosts, the largest of their ranks')."""
+    import torch
+
+    from faucet_tpu_torch.device import resolve_device
+    from faucet_tpu_torch.dist.mesh import (default_backend, spawn,
+                                            usable_cpus)
+
+    hosts, host = args.num_processes or 1, args.process_id or 0
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        print("error: --coordinator needs --num_processes and "
+              "--process_id", file=sys.stderr)
+        return 2
+    if cfg.n_shards % hosts or not 0 <= host < hosts:
+        print(f"error: {cfg.n_shards} shards do not split over "
+              f"{hosts} processes (process {host})", file=sys.stderr)
+        return 2
+    local = cfg.n_shards // hosts
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        n_gpu = torch.cuda.device_count()
+        devices = [f"cuda:{(host * local + i) % n_gpu}" for i in range(local)]
+    else:
+        devices = [str(dev)] * local
+    if not args.no_native:
+        from faucet_tpu_torch.io import native as NV
+
+        NV.available()  # one build in this process, not one per rank
+    spools = {}
+    try:
+        # a pipe or stdin cannot be read by every rank: spool it once
+        for name in ("read_load_file", "read_scan_file"):
+            path = getattr(cfg, name)
+            if path and _is_pipe(path):
+                if path not in spools:
+                    spools[path] = _spool(path)
+                cfg = dataclasses.replace(cfg, **{name: spools[path]})
+        rcs = spawn(_rank_main, cfg.n_shards, args=(args, cfg),
+                    devices=devices, backend=default_backend(devices),
+                    timeout=DIST_TIMEOUT_S,
+                    # the ranks share this process's threads
+                    threads=max(1, min(torch.get_num_threads(),
+                                       usable_cpus()) // local),
+                    init_method=(f"tcp://{args.coordinator}"
+                                 if args.coordinator else None),
+                    hosts=hosts, host=host)
+    finally:
+        for f in spools.values():
+            os.unlink(f)
+    return rcs[0] if host == 0 else max(rcs)
+
+
+def _rank_main(mesh, args, cfg) -> int:
+    """One rank of a sharded CLI run."""
+    from faucet_tpu_torch.dist.sharded import ShardedPipeline
+
+    main_rank = mesh.rank == 0
+    pipe = ShardedPipeline(cfg, mesh,
+                           Metrics(cfg.metrics_file if main_rank else None))
+    if main_rank:
+        return _profiled(args, cfg, pipe, pipe.device)
+    return _run(args, cfg, pipe)
 
 
 def _start_profiler(device):
@@ -194,18 +268,28 @@ def _run(args, cfg, pipe) -> int:
     from faucet_tpu_torch.out.gfa import write_gfa
     from faucet_tpu_torch.pipeline import batch_iter
 
+    # a sharded run's ranks all run this; rank 0 alone speaks and writes
+    mesh = getattr(pipe, "mesh", None)
+    main_rank = mesh is None or mesh.rank == 0
+    say = (lambda msg: print(msg, file=sys.stderr)) if main_rank \
+        else (lambda msg: None)
     resumed = False
     if cfg.bloom_file and cfg.junctions_file:
-        pipe.cascade, node_cascade = CK.load_bloom(cfg.bloom_file, cfg,
-                                                   pipe.device)
-        pipe.node_cascade = node_cascade
-        pipe.junctions, pipe.sinks, pairs = CK.load_junctions(
-            cfg.junctions_file, cfg, pipe.device)
-        if pairs is not None:
-            pipe.pairs = pairs
+        cascade, node_cascade = CK.load_bloom(cfg.bloom_file, cfg,
+                                              pipe.device)
+        junctions, sinks, pairs = CK.load_junctions(cfg.junctions_file,
+                                                    cfg, pipe.device)
+        if mesh is not None:
+            # each rank keeps its slices of the global arrays
+            pipe.place_state(cascade, node_cascade, junctions, sinks, pairs)
+        else:
+            pipe.cascade, pipe.node_cascade = cascade, node_cascade
+            pipe.junctions, pipe.sinks = junctions, sinks
+            if pairs is not None:
+                pipe.pairs = pairs
         resumed = True
-        print(f"[faucet_tpu_torch] resumed from {cfg.bloom_file} + "
-              f"{cfg.junctions_file}", file=sys.stderr)
+        say(f"[faucet_tpu_torch] resumed from {cfg.bloom_file} + "
+            f"{cfg.junctions_file}")
     elif cfg.bloom_file or cfg.junctions_file:
         print("error: resume needs both -bloom_file and -junctions_file",
               file=sys.stderr)
@@ -217,8 +301,7 @@ def _run(args, cfg, pipe) -> int:
 
         use_native = NV.available()
         if use_native:
-            print("[faucet_tpu_torch] using native C++ reader",
-                  file=sys.stderr)
+            say("[faucet_tpu_torch] using native C++ reader")
     if cfg.paired_ends and cfg.batch_reads % 2:
         print("error: --paired_ends needs an even --batch_reads",
               file=sys.stderr)
@@ -243,8 +326,8 @@ def _run(args, cfg, pipe) -> int:
         # dual-k reads the load reads twice; a pipe or stdin cannot be
         # re-read, so it is spooled to a temporary file first
         spool = _spool(cfg.read_load_file)
-        print(f"[faucet_tpu_torch] dual-k on a pipe: spooled load reads "
-              f"to {spool}", file=sys.stderr)
+        say(f"[faucet_tpu_torch] dual-k on a pipe: spooled load reads "
+            f"to {spool}")
         cfg = dataclasses.replace(cfg, read_load_file=spool)
 
     # the spool file must not outlive the run on any exit path
@@ -275,11 +358,7 @@ def _run(args, cfg, pipe) -> int:
                 else:
                     pipe.scan_paired(read_seqs(cfg.read_scan_file,
                                                cfg.fastq))
-            CK.save_bloom(f"{cfg.file_prefix}.bloom.npz", cfg, pipe.cascade,
-                          pipe.node_cascade)
-            CK.save_junctions(f"{cfg.file_prefix}.junctions.npz", cfg,
-                              pipe.junctions, pipe.sinks,
-                              pipe.pairs if cfg.paired_ends else None)
+            _save_checkpoints(cfg, pipe, main_rank)
             if not args.stream:  # run_streaming built+cleaned already
                 g = pipe._finish()
         else:
@@ -291,11 +370,30 @@ def _run(args, cfg, pipe) -> int:
     finally:
         if spool is not None:
             os.unlink(spool)
-    write_contigs(g, f"{cfg.file_prefix}.fasta")
-    write_gfa(g, f"{cfg.file_prefix}.gfa")
-    print(f"[faucet_tpu_torch] wrote {cfg.file_prefix}.fasta, "
-          f"{cfg.file_prefix}.gfa", file=sys.stderr)
+    if main_rank:
+        write_contigs(g, f"{cfg.file_prefix}.fasta")
+        write_gfa(g, f"{cfg.file_prefix}.gfa")
+    say(f"[faucet_tpu_torch] wrote {cfg.file_prefix}.fasta, "
+        f"{cfg.file_prefix}.gfa")
     return 0
+
+
+def _save_checkpoints(cfg, pipe, main_rank: bool):
+    """The post-scan checkpoints; a sharded run writes the gathered
+    global arrays, once."""
+    from faucet_tpu_torch.ckpt import state as CK
+
+    if getattr(pipe, "mesh", None) is not None:
+        cascade, node_cascade, junctions, sinks, pairs = pipe.global_state()
+    else:
+        cascade, node_cascade = pipe.cascade, pipe.node_cascade
+        junctions, sinks, pairs = pipe.junctions, pipe.sinks, pipe.pairs
+    if main_rank:
+        CK.save_bloom(f"{cfg.file_prefix}.bloom.npz", cfg, cascade,
+                      node_cascade)
+        CK.save_junctions(f"{cfg.file_prefix}.junctions.npz", cfg,
+                          junctions, sinks,
+                          pairs if cfg.paired_ends else None)
 
 
 def _second_pass(k2: int, cfg, pipe, g, read_batches):
@@ -309,10 +407,19 @@ def _second_pass(k2: int, cfg, pipe, g, read_batches):
 
     cfg2 = dataclasses.replace(cfg, size_kmer=k2,
                                file_prefix=cfg.file_prefix + f".k{k2}")
-    pipe2 = Pipeline(cfg2, Metrics(cfg.metrics_file), device=pipe.device)
+    mesh = getattr(pipe, "mesh", None)
+    main_rank = mesh is None or mesh.rank == 0
+    metrics = Metrics(cfg.metrics_file if main_rank else None)
+    if mesh is not None:  # the second pass runs sharded too
+        from faucet_tpu_torch.dist.sharded import ShardedPipeline
+
+        pipe2 = ShardedPipeline(cfg2, mesh, metrics)
+    else:
+        pipe2 = Pipeline(cfg2, metrics, device=pipe.device)
     chunks = contig_chunks(g, cfg.max_read_length, k2)
-    print(f"[faucet_tpu_torch] dual-k second pass at k={k2} "
-          f"({len(chunks) // 2} contig chunks)", file=sys.stderr)
+    if main_rank:
+        print(f"[faucet_tpu_torch] dual-k second pass at k={k2} "
+              f"({len(chunks) // 2} contig chunks)", file=sys.stderr)
 
     def second_batches():
         # the reads as the first pass read them, then the chunks
@@ -323,7 +430,8 @@ def _second_pass(k2: int, cfg, pipe, g, read_batches):
     pipe2.scan_batches(second_batches())
     g2 = pipe2.clean_graph(pipe2.build())
     pipe2.metrics.add("contigs", len(g2.live()))
-    pipe2.metrics.emit("dual_k_done", stats=g2.stats())
+    if main_rank:
+        pipe2.metrics.emit("dual_k_done", stats=g2.stats())
     return g2
 
 

@@ -228,32 +228,42 @@ def _whole_rounds(n: int, K: int) -> int:
     return -(-n // K) * K if n else 0
 
 
-def compact_rounds(mask, K: int, payloads, fn, state, compact):
+def compact_rounds(mask, K: int, payloads, fn, state, compact, sync=None):
     """The round loop of upsert_rounds: ONE call of `compact` (the
     kernels/compact.py mask_indices contract) lists the live lanes in lane
     order and counts them (the one host sync); round r folds lanes
     r*K .. r*K + K - 1 of that list. Round contents equal the reference's
     stable-argsort rounds: both take live lanes K at a time in lane
-    order. Returns (state, live lanes)."""
+    order. `sync` maps the round count (the sharded scan takes the max
+    over its ranks, so every rank issues the same collectives; rounds
+    past this rank's own carry no live lane). Returns (state, live
+    lanes)."""
     idx, cnt = compact(mask, _whole_rounds(mask.shape[0], K))
     total = int(cnt)
+    rounds = -(-total // K) if total else 0
+    if sync is not None:
+        rounds = sync(rounds)
     slot = torch.arange(K, device=mask.device)
-    for r in range(-(-total // K) if total else 0):
+    for r in range(rounds):
         take = idx[r * K:(r + 1) * K]
         cm = slot < total - r * K
         if total - r * K < K:
+            if take.shape[0] < K:
+                take = torch.zeros_like(slot)
             take = torch.where(cm, take, 0)  # slots past total: don't-care
         state = fn(state, cm, tuple(p[take] for p in payloads))
     return state, total
 
 
-def upsert_rounds(mask, K: int, payloads, fn, state):
+def upsert_rounds(mask, K: int, payloads, fn, state, sync=None):
     """Fold every True lane of a sparse update grid into `state`, K
     compacted lanes per round, keeping lane order. The lanes come from one
     launch of the stream-compaction kernel (kernels/compact.py
     mask_indices, looked up at call time; its plain version on CPU
-    tensors); their count is fetched to the host (one sync)."""
-    return compact_rounds(mask, K, payloads, fn, state, CP.mask_indices)
+    tensors); their count is fetched to the host (one sync). `sync`: as
+    compact_rounds'."""
+    return compact_rounds(mask, K, payloads, fn, state, CP.mask_indices,
+                          sync=sync)
 
 
 def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,

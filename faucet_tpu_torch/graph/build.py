@@ -1,6 +1,8 @@
 """Phase-3 graph build: device walks -> host ContigGraph.
 
-Port of faucet_tpu/graph/build.py, single process. A codec hides the
+Port of faucet_tpu/graph/build.py. Given a mesh (dist/), the state is one
+rank's hash-range slice: the extracts gather every rank's occupied rows
+and the walks route their probes (dist/swalk.py). A codec hides the
 difference between narrow codes (k <= 31: the table keys ARE the canonical
 codes) and wide ones (k > 31: fingerprint keys, the four code words stored
 as a table value, core/wide.py). All walks run as one lockstep device
@@ -38,14 +40,20 @@ from faucet_tpu_torch.graph.model import Contig, ContigGraph, End
 _CODEBOOK = "ACGT"
 
 
-def extract_table(tbl: T.Table):
+def extract_table(tbl: T.Table, mesh=None):
     """Occupied rows of a device table -> host numpy dict (hi, lo uint32;
-    v<i> in the table's dtypes). Only the occupied rows leave the device."""
+    v<i> in the table's dtypes). Only the occupied rows leave the device.
+
+    mesh: `tbl` is one rank's slice of a hash-range-sharded table; every
+    rank gathers the occupied rows of all slices, in rank order (callers
+    sort by key; collective). Each rank owns a distinct hash range, so a
+    row is never gathered twice."""
     idx = torch.nonzero(T.occupied_mask(tbl)).squeeze(1)
-    out = {"hi": u2.to_np_u32(tbl.keys_hi[idx]),
-           "lo": u2.to_np_u32(tbl.keys_lo[idx])}
+    rows = lambda a: a[idx] if mesh is None else mesh.fetch_rows(a[idx])
+    out = {"hi": u2.to_np_u32(rows(tbl.keys_hi)),
+           "lo": u2.to_np_u32(rows(tbl.keys_lo))}
     for i, v in enumerate(tbl.vals):
-        out[f"v{i}"] = v[idx].cpu().numpy()
+        out[f"v{i}"] = rows(v).cpu().numpy()
     return out
 
 
@@ -175,12 +183,24 @@ class _WideCodec:
 
 
 class GraphBuilder:
+    """mesh: the state is one rank's hash-range slice (dist/sharded.py)
+    and the walks route their probes to the owning ranks (dist/swalk.py;
+    narrow codes with cfg.route_walks only, as the reference's). Every
+    rank of the mesh builds, and gets the same graph. route_bytes: the
+    routed walks' bytes."""
+
     def __init__(self, cfg, cascade: BL.Cascade, junctions: T.Table,
-                 sinks: T.Table):
+                 sinks: T.Table, mesh=None):
+        if mesh is not None and (cfg.wide or not cfg.route_walks):
+            raise ValueError("routed walks need narrow codes and "
+                             "route_walks; walk unrouted on the gathered "
+                             "global arrays (dist/sharded.py)")
         self.cfg = cfg
         self.cascade = cascade
         self.junctions = junctions
         self.sinks = sinks
+        self.mesh = mesh
+        self.route_bytes = 0
         self.device = cascade.b_bloom.words.device
         if cfg.wide:
             # junction codes in value 2 (after cov8, dist8), sink codes in 1
@@ -257,11 +277,15 @@ class GraphBuilder:
         while total < cfg.max_contig_len:
             rr, ss = warmup.pop(0) if warmup else (R,
                                                    cfg.walk_round_steps)
-            fr, bases, _r = W.walk_waves(
-                self.cascade, self.junctions, fr, n_rounds=rr, n_steps=ss,
-                cfg=cfg, walk_fn=functools.partial(codec.walk_round(),
-                                                   junc_fn=self._junc_fn),
-                resolve_fn=codec.resolver())
+            if self.mesh is not None:
+                fr, bases = self._routed_waves(fr, rr, ss)
+            else:
+                fr, bases, _r = W.walk_waves(
+                    self.cascade, self.junctions, fr, n_rounds=rr,
+                    n_steps=ss, cfg=cfg,
+                    walk_fn=functools.partial(codec.walk_round(),
+                                              junc_fn=self._junc_fn),
+                    resolve_fn=codec.resolver())
             b = bases.cpu().numpy()
             mask = b != 255
             counts = mask.sum(axis=1)
@@ -293,6 +317,26 @@ class GraphBuilder:
             "end_str": res_str,
         }
 
+    def _routed_waves(self, fr, n_rounds: int, n_steps: int):
+        """One wave call with the frontier's lanes split over the ranks:
+        this rank walks its share with routed probes, then every rank
+        gathers the whole frontier and strip back (the host driver runs
+        on every rank alike)."""
+        from faucet_tpu_torch.dist.swalk import walk_waves_routed
+
+        mesh = self.mesh
+        Wl = fr.steps.shape[0] // mesh.n_shards
+        lanes = slice(mesh.rank * Wl, (mesh.rank + 1) * Wl)
+        fr_l, bases, rb = walk_waves_routed(
+            mesh, self.cascade, self._owned_keys,
+            type(fr)(*(f[lanes] for f in fr)), n_rounds, n_steps, self.cfg)
+        self.route_bytes += rb
+        packed = mesh.fetch(torch.stack([f.to(torch.int64) for f in fr_l],
+                                        dim=1))
+        fr = type(fr)(*(packed[:, i].to(f.dtype)
+                        for i, f in enumerate(fr_l)))
+        return fr, mesh.fetch(bases)
+
     # ---- contig assembly -------------------------------------------------
     def _strip_to_str(self, row: np.ndarray, steps: int) -> str:
         return "".join(_CODEBOOK[b] for b in row[:steps])
@@ -300,7 +344,7 @@ class GraphBuilder:
     def build(self) -> ContigGraph:
         cfg = self.cfg
         k = cfg.size_kmer
-        jt = extract_table(self.junctions)
+        jt = extract_table(self.junctions, self.mesh)
         n_j = len(jt["hi"])
         cov8 = jt.get("v0", np.zeros((0, 8), np.int32))
         dist8 = jt.get("v1", np.zeros((0, 8), np.int32))
@@ -313,12 +357,20 @@ class GraphBuilder:
             int(kk): cov8[i] for i, kk in enumerate(jkeys)}
         all_rows = list(range(n_j))
         jnode_strs = self.codec_j.node_strs(jt, all_rows) if n_j else []
-        # the walks' junction oracle: the sorted occupied keys
-        self._junc_fn = W.sorted_member(
-            torch.from_numpy(jkeys.astype(np.int64)).to(self.device))
+        # the walks' junction oracle: the sorted occupied keys (routed
+        # walks: this rank's own, which answer the junction tests routed
+        # to it; dist/swalk.py)
+        if self.mesh is None:
+            self._junc_fn = W.sorted_member(torch.from_numpy(
+                jkeys.astype(np.int64)).to(self.device))
+        else:
+            occ = T.occupied_mask(self.junctions)
+            self._owned_keys = torch.sort(u2.pack(
+                u2.from_i32(self.junctions.keys_hi[:-1][occ]),
+                u2.from_i32(self.junctions.keys_lo[:-1][occ]))).values
 
         # sink/cap anchors (extracted once; pass-1 FP-trim + pass-2 seeds)
-        st = extract_table(self.sinks)
+        st = extract_table(self.sinks, self.mesh)
         skeys = u2.to_int(st["hi"], st["lo"])
         order = np.argsort(skeys, kind="stable")
         for key in list(st.keys()):

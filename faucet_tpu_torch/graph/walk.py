@@ -198,8 +198,12 @@ def _top_beam(score):
                       stable=True).indices[:, :BEAM]
 
 
+def _local_any(m) -> bool:
+    return bool(m.any())
+
+
 def resolve_ambiguous(cascade: BL.Cascade, fr: Frontier, cfg,
-                      solid_fn=None) -> Frontier:
+                      solid_fn=None, any_fn=_local_any) -> Frontier:
     """Re-arm walks retired on Bloom-fp branches via deep beam lookahead
     (see the reference's docstring): each solid candidate of an ambiguous
     step must keep a solid path of cfg.fp_lookahead more bases alive in a
@@ -207,13 +211,15 @@ def resolve_ambiguous(cascade: BL.Cascade, fr: Frontier, cfg,
 
     Runs on a gathered frame of at most _resolve_cap(W) ambiguous lanes;
     with none ambiguous it returns the frontier unchanged (the reference
-    computes the same no-op verdict)."""
+    computes the same no-op verdict). any_fn decides that test; a
+    lane-sharded frontier passes one agreed over its ranks, so that every
+    rank issues the routed probes or none does."""
     k = cfg.size_kmer
     if solid_fn is None:
         solid_fn = lambda chi, clo, m: BL.cascade_solid(cascade, chi,
                                                         clo, m, cfg)
     amb_all = (fr.end_kind == END_AMBIG) & ~fr.active
-    if not bool(amb_all.any()):
+    if not any_fn(amb_all):
         return fr
     CAP = _resolve_cap(fr.forced.shape[0])
     # lax.top_k lane pick: ambiguous lanes first, ties by lower index
@@ -396,9 +402,14 @@ def resolve_ambiguous_wide(cascade: BL.Cascade, fr: FrontierW, cfg
 
 
 def walk_waves(cascade: BL.Cascade, junctions: T.Table, fr, n_rounds: int,
-               n_steps: int, cfg, walk_fn=None, resolve_fn=None):
+               n_steps: int, cfg, walk_fn=None, resolve_fn=None,
+               any_fn=_local_any):
     """Run up to n_rounds walk rounds (each n_steps, with fp-branch
     resolution between rounds), stopping early when no lane is pending.
+    any_fn reduces the pending mask to the continue flag: a lane-sharded
+    frontier (dist/swalk.py) passes one agreed over its ranks, or ranks
+    would leave the loop at different rounds with their routed probes
+    unanswered.
 
     Returns (frontier, bases u8[W, n_rounds*n_steps], rounds_executed);
     bases is 255 where no advance happened."""
@@ -408,7 +419,7 @@ def walk_waves(cascade: BL.Cascade, junctions: T.Table, fr, n_rounds: int,
     def pending(fr):
         # active lanes OR ambiguous retirees the capped resolver has not
         # judged yet
-        return bool((fr.active | (fr.end_kind == END_AMBIG)).any())
+        return any_fn(fr.active | (fr.end_kind == END_AMBIG))
 
     W = fr.steps.shape[0]
     bases = torch.full((W, n_rounds * n_steps), 255, dtype=torch.uint8,

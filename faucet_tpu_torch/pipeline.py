@@ -6,12 +6,12 @@ is extracted to the host for cleaning and emission. `run_file_mode`
 makes two passes over the reads, `run_streaming` one (insert, then scan,
 each batch). Reads are consumed batch by batch and never stored.
 
-Ported scope: everything the reference runs on one device: k <= 63
-(wide codes above 31), Bloom and exact mode, branch-node and ext8
-junctions, paired ends, the prune_slots pre-clean, and the chunks of a
-dual-k second pass (`contig_chunks`; the CLI joins the two passes).
-Sharding (n_shards > 1) raises NotImplementedError naming ROADMAP.md's
-dist/ item.
+Scope: everything the reference's Pipeline runs: k <= 63 (wide codes
+above 31), Bloom and exact mode, branch-node and ext8 junctions, paired
+ends, the prune_slots pre-clean, and the chunks of a dual-k second pass
+(`contig_chunks`; the CLI joins the two passes). A config with n_shards >
+1 runs here on one device in the owner-prefixed global layout; the
+sharded run over one process per shard is dist/sharded.py.
 """
 from __future__ import annotations
 
@@ -68,19 +68,9 @@ def batch_iter(reads: Iterable[str], cfg: Config
         yield pack_reads(buf, cfg.max_read_length)
 
 
-def check_supported(cfg: Config):
-    """Refuse configurations whose features are not ported yet: only
-    sharding (dist/)."""
-    if cfg.n_shards > 1:
-        raise NotImplementedError(
-            "dist/ (n_shards > 1) is not ported to faucet_tpu_torch; see "
-            "ROADMAP.md (dist/)")
-
-
 class Pipeline:
     def __init__(self, cfg: Config, metrics: Optional[Metrics] = None,
                  device="cuda"):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         dev = self.device

@@ -4,8 +4,11 @@ imports nothing of faucet_tpu.
 A subprocess blocks jax, jaxlib and the faucet_tpu package with a
 sys.meta_path finder, imports every module of the port (dist/ included)
 and chip_smoke.py, and assembles a small genome on the CPU in each mode:
-any import of jax or of faucet_tpu fails. A scan of the sources rejects
-import lines of either.
+any import of jax or of faucet_tpu fails. Its sharded run's ranks are
+processes of their own: a sitecustomize on their PYTHONPATH installs the
+same finder at their start, and each reports that the packages are
+blocked and were never imported. A scan of the sources (dist/ included)
+rejects import lines of either.
 """
 import dataclasses
 import os
@@ -106,13 +109,39 @@ state, total = SC.compact_rounds(mask, 8, (torch.arange(50),),
 assert total == 17 and int(state) == int(torch.arange(50)[mask].sum())
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "faucet_tpu")
                for m in sys.modules)
+
+# dist/: two gloo ranks, spawned with the finder installed at their start
+for n in ("mesh", "route", "sharded", "swalk", "halo"):
+    assert f"faucet_tpu_torch.dist.{n}" in names
+import torch_dist_ranks as DR
+from faucet_tpu_torch.dist.mesh import spawn
+for n_contigs, blocked, loaded in spawn(DR.nojax_rank, 2, threads=1,
+                                        timeout=200):
+    assert n_contigs >= 1
+    assert sorted(blocked) == sorted(DR.BANNED) and not loaded, (blocked,
+                                                                 loaded)
 print("OK", len(names))
 '''
 
+_SITE = '''
+import importlib.abc, sys
 
-def test_port_imports_and_runs_without_jax():
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "faucet_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+'''
+
+
+def test_port_imports_and_runs_without_jax(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(_SITE)
     env = dict(os.environ)
-    env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(tmp_path), _REPO, os.path.join(_REPO, "tests"),
+         env.get("PYTHONPATH", "")])
     r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=_REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -118,10 +118,11 @@ def test_checkpoint_resumes_in_the_other_package(cli_runs, writer):
             (tmp / f"j_two.{ext}").read_bytes()
 
 
-# ported since (wide k, ext8; exact mode, dual-k, --profile): these
-# flags now run
+# ported since (wide k, ext8; exact mode, dual-k, --profile; sharding):
+# these flags now run
 _PORTED_FLAGS = (["--junction_detect", "ext8"], ["-size_kmer", "33"],
-                 ["--exact"], ["-second_kmer", "25"], ["--profile"])
+                 ["--exact"], ["-second_kmer", "25"], ["--profile"],
+                 ["--n_shards", "2"])
 
 
 @pytest.mark.parametrize("flags", [
@@ -131,8 +132,9 @@ _PORTED_FLAGS = (["--junction_detect", "ext8"], ["-size_kmer", "33"],
 ])
 def test_cli_unported_flags_exit_nonzero(repeat_case, tmp_path, capsys,
                                          flags):
-    """Flags of unported features exit non-zero naming their ROADMAP.md
-    item; the flags of features ported since assemble on --device cpu."""
+    """No flag of the reference CLI is refused any longer: each assembles
+    on --device cpu (--n_shards 2 in two ranks); --coordinator without
+    --num_processes and --process_id exits non-zero saying so."""
     if flags in _PORTED_FLAGS:
         simulate.write_fasta(str(tmp_path / "reads.fa"), repeat_case[1])
         assert tcli.main(_args(tmp_path, "out", "--stream", *flags,
@@ -141,12 +143,14 @@ def test_cli_unported_flags_exit_nonzero(repeat_case, tmp_path, capsys,
         return
     rc = tcli.main(["-read_load_file", "x.fa", "--stream", *flags])
     assert rc != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert "--num_processes" in capsys.readouterr().err
 
 
 def test_unported_config_and_missing_card_raise(repeat_case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TPipeline(_cfg(n_shards=2), device="cpu")
+    # n_shards > 1 runs on one device in the owner-prefixed global layout,
+    # as the reference's Pipeline does (the sharded run: dist/sharded.py)
+    p = TPipeline(_cfg(n_shards=2), device="cpu")
+    assert len(p.run_file_mode(repeat_case[1], repeat_case[1]).live()) >= 1
     # ext8 is ported: it assembles, with no branch-node cascade
     p = TPipeline(_cfg(junction_detect="ext8"), device="cpu")
     assert p.node_cascade is None
