@@ -11,7 +11,8 @@
 
 `--platform` becomes `--device` (default cuda). A run that asks for cuda
 where there is none fails; it never falls back to the CPU. `--profile`
-writes a torch.profiler Chrome trace into `{file_prefix}.trace/`.
+writes a torch.profiler Chrome trace into `{file_prefix}.trace/`, with
+the run's spans (metrics.py) as `faucet.<path>` events.
 Checkpoints are interchangeable with faucet_tpu's.
 
 Sharding: `--n_shards N` (N > 1) starts N ranks, one process per shard
@@ -79,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics_file", default=None)
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler Chrome trace into "
-                        "{file_prefix}.trace/")
+                        "{file_prefix}.trace/: the device's operations "
+                        "and the run's own spans, named faucet.<path> "
+                        "(faucet.build/pass1/walk/round, ...)")
     p.add_argument("--min_contig_cov", type=float, default=2.5)
     p.add_argument("--tip_len_factor", type=float, default=2.0)
     p.add_argument("--distributed_clean", action="store_true",

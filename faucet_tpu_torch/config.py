@@ -1,6 +1,7 @@
-# Copied verbatim from faucet_tpu/config.py: the port imports nothing of
-# faucet_tpu. Field names, defaults and derived values must stay identical
-# (the checkpoint hash, ckpt/state.py _cfg_hash, reads them).
+# Copied from faucet_tpu/config.py (only the `profile` comment differs):
+# the port imports nothing of faucet_tpu. Field names, defaults and
+# derived values must stay identical (the checkpoint hash, ckpt/state.py
+# _cfg_hash, reads them).
 """Configuration for the faucet_tpu pipeline.
 
 Mirrors the reference CLI surface (SURVEY.md §5 "Config / flag system":
@@ -104,7 +105,7 @@ class Config:
     #   deletion for metagenome-scale graphs — BASELINE config 5). 0 = off.
     #   (default sits above the cov==2 islands that doubled sequencing
     #    errors create, below any real path at >=3x depth)
-    profile: bool = False                  # emit jax.profiler trace
+    profile: bool = False                  # torch.profiler Chrome trace
     metrics_file: Optional[str] = None     # JSONL metrics sink
     seed: int = 0
 

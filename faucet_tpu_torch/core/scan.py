@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from faucet_tpu_torch import metrics as M
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import kmer as KM
 from faucet_tpu_torch.core import nodes as ND
@@ -113,7 +114,7 @@ def _spool_append(junctions: T.Table, spool: JSpool, u: "ScanUpdates",
     n = jm.shape[0]
     K = min(n, cfg.scan_update_cap)
     idx, cnt = CP.mask_indices(jm, _whole_rounds(n, K))
-    total = int(cnt)
+    total = int(M.fetch(cnt))
     S = spool.khi.shape[0]
     if spool.cnt + total > S - K:
         junctions, spool = spool_flush(junctions, spool, cfg)
@@ -239,7 +240,7 @@ def compact_rounds(mask, K: int, payloads, fn, state, compact, sync=None):
     past this rank's own carry no live lane). Returns (state, live
     lanes)."""
     idx, cnt = compact(mask, _whole_rounds(mask.shape[0], K))
-    total = int(cnt)
+    total = int(M.fetch(cnt))
     rounds = -(-total // K) if total else 0
     if sync is not None:
         rounds = sync(rounds)
@@ -460,7 +461,7 @@ def capture_pairs(pairs: T.Table, res1: ScanResult, res2: ScanResult,
 
     ahi, alo, av = padJ(ahi, EMPTY), padJ(alo, EMPTY), padJ(av, False)
     bhi, blo, bv = padJ(bhi, EMPTY), padJ(blo, EMPTY), padJ(bv, False)
-    max_a, max_b = torch.stack([na.max(), nb.max()]).tolist()
+    max_a, max_b = M.fetch(torch.stack([na.max(), nb.max()])).tolist()
     ra, rb = -(-max_a // J), -(-max_b // J)
     shard_bits = 0 if cfg is None else cfg.shard_bits
     sl = lambda x, t: x[:, t * J:(t + 1) * J]
@@ -477,13 +478,9 @@ def capture_pairs(pairs: T.Table, res1: ScanResult, res2: ScanResult,
     return pairs
 
 
-def load_batch(cascade: BL.Cascade, bases, lens, cfg) -> BL.Cascade:
-    """Phase-1 cascade load of every valid window of the batch."""
-    return load_batch_s(cascade, bases, lens, cfg)[0]
-
-
 def load_batch_s(cascade: BL.Cascade, bases, lens, cfg):
-    """load_batch + the per-window solidity grid."""
+    """Phase-1 cascade load of every valid window of the batch, and the
+    per-window solidity grid."""
     if cfg.size_kmer <= 31:
         view = KM.kmerize(bases, lens, cfg.size_kmer)
         khi, klo, valid = view.canon_hi, view.canon_lo, view.valid
@@ -495,21 +492,13 @@ def load_batch_s(cascade: BL.Cascade, bases, lens, cfg):
     return cascade, solid.reshape(khi.shape)
 
 
-def load_batch_nodes(cascade: BL.Cascade, node_cascade: BL.Cascade,
-                     bases, lens, cfg):
-    """Phase-1 load + branch-node cascade maintenance; returns (cascade,
-    node_cascade, n_new_b)."""
-    cascade, node_cascade, n_new, _ = load_batch_nodes_s(
-        cascade, node_cascade, bases, lens, cfg)
-    return cascade, node_cascade, n_new
-
-
 def load_batch_nodes_s(cascade: BL.Cascade, node_cascade: BL.Cascade,
                        bases, lens, cfg):
-    """load_batch_nodes + the per-window B-solidity grid the insert pass
-    computes anyway (single-pass streaming skips the scan's own window
-    probe with it). Each k-mer newly promoted into B inserts its two
-    endpoint keys into the node cascade D -> E."""
+    """Phase-1 load + branch-node cascade maintenance; returns (cascade,
+    node_cascade, n_new_b, the per-window B-solidity grid, which
+    single-pass streaming hands to the scan in place of its own window
+    probe). Each k-mer newly promoted into B inserts its two endpoint
+    keys into the node cascade D -> E."""
     view = KM.kmerize(bases, lens, cfg.size_kmer)
     cascade, new_b, solid = BL.cascade_insert_nbs(
         cascade, view.canon_hi.reshape(-1), view.canon_lo.reshape(-1),

@@ -25,6 +25,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from faucet_tpu_torch import metrics as M
 from faucet_tpu_torch.core import u32x2 as u2
 from faucet_tpu_torch.core.hashing import hash_pair
 
@@ -99,13 +100,17 @@ def _dedupe(khi, klo, vals, mask, modes):
 
 def _rounds(step, pending, max_rounds: int):
     """Run step(r) for r = 0, 1, ... until no lane is pending (checked
-    every ROUND_CHUNK rounds) or max_rounds is reached."""
+    every ROUND_CHUNK rounds) or max_rounds is reached. Each step is a
+    span `probe_round`, counted in `table_probe_rounds`."""
     r = 0
     while r < max_rounds:
-        for _ in range(min(ROUND_CHUNK, max_rounds - r)):
-            pending = step(r, pending)
+        n = min(ROUND_CHUNK, max_rounds - r)
+        for _ in range(n):
+            with M.span("probe_round"):
+                pending = step(r, pending)
             r += 1
-        if not bool(pending.any()):
+        M.count("table_probe_rounds", n)
+        if not bool(M.fetch(pending.any())):
             break
     return pending
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from faucet_tpu_torch import metrics as M
+
 M32 = 0xFFFFFFFF
 I64 = torch.int64
 
@@ -30,7 +32,7 @@ def u32(x, device=None) -> torch.Tensor:
 
 def to_np_u32(t: torch.Tensor) -> np.ndarray:
     """int64 (uint32-valued) or int32 (bit pattern) tensor -> numpy uint32."""
-    return t.detach().cpu().numpy().astype(np.uint32)
+    return M.fetch(t).astype(np.uint32)
 
 
 def to_i32(t: torch.Tensor) -> torch.Tensor:

@@ -412,12 +412,10 @@ class ShardedPipeline:
         self.load_batches(self._batches(reads))
 
     def load_batches(self, batches):
-        m = self.metrics
-        m.start("load")
-        for bases, lens in self._prefetch(batches):
-            self.load_batch(bases, lens)
-        self._sync()
-        m.stop("load")
+        with self.metrics.span("load"):
+            for bases, lens in self._prefetch(batches):
+                self.load_batch(bases, lens)
+            self._sync()
 
     def load_batch(self, bases, lens):
         b = self._rows(self._dev(bases))
@@ -439,12 +437,10 @@ class ShardedPipeline:
         self.scan_batches(self._batches(reads, self.cfg))
 
     def scan_batches(self, batches):
-        m = self.metrics
-        m.start("scan")
-        for bases, lens in self._prefetch(batches):
-            self.scan_batch(bases, lens)
-        self._sync()
-        m.stop("scan")
+        with self.metrics.span("scan"):
+            for bases, lens in self._prefetch(batches):
+                self.scan_batch(bases, lens)
+            self._sync()
 
     def scan_batch(self, bases, lens):
         """Scan this rank's rows; returns their (jm, canon_hi, canon_lo)."""
@@ -497,12 +493,10 @@ class ShardedPipeline:
             yield bases[:h], lens[:h], bases[h:], lens[h:]
 
     def scan_paired(self, reads):
-        m = self.metrics
-        m.start("scan")
-        for packed in self._mate_batches(reads):
-            self._scan_pair_packed(*packed)
-        self._sync()
-        m.stop("scan")
+        with self.metrics.span("scan"):
+            for packed in self._mate_batches(reads):
+                self._scan_pair_packed(*packed)
+            self._sync()
 
     def _scan_pair_packed(self, b1, l1, b2, l2):
         jm1, chi1, clo1 = self.scan_batch(b1, l1)
@@ -516,13 +510,11 @@ class ShardedPipeline:
     def scan_paired_batches(self, batches):
         """Paired scan over packed interleaved batches: mates are the
         alternating rows of each batch."""
-        m = self.metrics
-        m.start("scan")
-        for bases, lens in self._lockstep(batches):
-            self._scan_pair_packed(bases[0::2], lens[0::2], bases[1::2],
-                                   lens[1::2])
-        self._sync()
-        m.stop("scan")
+        with self.metrics.span("scan"):
+            for bases, lens in self._lockstep(batches):
+                self._scan_pair_packed(bases[0::2], lens[0::2], bases[1::2],
+                                       lens[1::2])
+            self._sync()
 
     def _stream_pair_packed(self, b1, l1, b2, l2):
         self.load_batch(b1, l1)
@@ -530,33 +522,29 @@ class ShardedPipeline:
         self._scan_pair_packed(b1, l1, b2, l2)
 
     def run_streaming(self, reads):
-        m = self.metrics
-        m.start("stream")
-        if self.cfg.paired_ends:
-            for packed in self._mate_batches(reads):
-                self._stream_pair_packed(*packed)
-        else:
-            for bases, lens in self._lockstep(self._batches(reads)):
-                self.load_batch(bases, lens)
-                self.scan_batch(bases, lens)
-        self._sync()
-        m.stop("stream")
+        with self.metrics.span("stream"):
+            if self.cfg.paired_ends:
+                for packed in self._mate_batches(reads):
+                    self._stream_pair_packed(*packed)
+            else:
+                for bases, lens in self._lockstep(self._batches(reads)):
+                    self.load_batch(bases, lens)
+                    self.scan_batch(bases, lens)
+            self._sync()
         return self._finish()
 
     def run_streaming_batches(self, batches):
         """Single pass over packed batches; paired mates ride the
         alternating rows."""
-        m = self.metrics
-        m.start("stream")
-        for bases, lens in self._lockstep(batches):
-            if self.cfg.paired_ends:
-                self._stream_pair_packed(bases[0::2], lens[0::2],
-                                         bases[1::2], lens[1::2])
-            else:
-                self.load_batch(bases, lens)
-                self.scan_batch(bases, lens)
-        self._sync()
-        m.stop("stream")
+        with self.metrics.span("stream"):
+            for bases, lens in self._lockstep(batches):
+                if self.cfg.paired_ends:
+                    self._stream_pair_packed(bases[0::2], lens[0::2],
+                                             bases[1::2], lens[1::2])
+                else:
+                    self.load_batch(bases, lens)
+                    self.scan_batch(bases, lens)
+            self._sync()
         return self._finish()
 
     def pair_counts(self):
@@ -614,18 +602,18 @@ class ShardedPipeline:
         cfg, m = self.cfg, self.metrics
         if cfg.prune_slot_cov > 0:
             self.junctions = prune_slots(self.junctions, cfg.prune_slot_cov)
-        m.start("build")
-        if cfg.route_walks and not cfg.wide:
-            gb = GraphBuilder(cfg, self.cascade, self.junctions, self.sinks,
-                              mesh=self.mesh)
-        else:
-            # unrouted walks run on the global arrays (the reference lets
-            # XLA partition them); every rank walks alike
-            gb = GraphBuilder(cfg, gather_cascade(self.mesh, self.cascade),
-                              gather_table(self.mesh, self.junctions),
-                              gather_table(self.mesh, self.sinks))
-        g = gb.build()
-        m.stop("build")
+        with m.span("build"):
+            if cfg.route_walks and not cfg.wide:
+                gb = GraphBuilder(cfg, self.cascade, self.junctions,
+                                  self.sinks, mesh=self.mesh)
+            else:
+                # unrouted walks run on the global arrays (the reference
+                # lets XLA partition them); every rank walks alike
+                gb = GraphBuilder(cfg, gather_cascade(self.mesh,
+                                                      self.cascade),
+                                  gather_table(self.mesh, self.junctions),
+                                  gather_table(self.mesh, self.sinks))
+            g = gb.build()
         jc, sc = self.mesh.psum_many([int(self.junctions.count),
                                       int(self.sinks.count)])
         m.add("junctions", int(jc))
@@ -640,21 +628,21 @@ class ShardedPipeline:
         cfg = self.cfg
         if cfg.no_cleaning:
             return g
-        pc = self._pair_count_fn() if cfg.paired_ends else None
-        max_tip = int(cfg.tip_len_factor * cfg.max_read_length)
-        if cfg.distributed_clean:
-            # halo-exchange partitioned cleaning (dist/halo.py): the same
-            # contig set as clean()
-            from faucet_tpu_torch.dist.halo import PartitionedCleaner
+        with self.metrics.span("clean"):
+            pc = self._pair_count_fn() if cfg.paired_ends else None
+            max_tip = int(cfg.tip_len_factor * cfg.max_read_length)
+            if cfg.distributed_clean:
+                # halo-exchange partitioned cleaning (dist/halo.py): the
+                # same contig set as clean()
+                from faucet_tpu_torch.dist.halo import PartitionedCleaner
 
-            cleaner = PartitionedCleaner(g, cfg.n_shards, mesh=self.mesh)
-            st = cleaner.clean(max_tip_len=max_tip, min_cov=cfg.min_contig_cov,
-                               pair_count=pc)
-            for k, v in st.items():
-                self.metrics.add(f"clean_{k}", v)
-            return cleaner.result()
-        st = clean(g, max_tip_len=max_tip, min_cov=cfg.min_contig_cov,
-                   pair_count=pc)
+                cleaner = PartitionedCleaner(g, cfg.n_shards, mesh=self.mesh)
+                st = cleaner.clean(max_tip_len=max_tip,
+                                   min_cov=cfg.min_contig_cov, pair_count=pc)
+                g = cleaner.result()
+            else:
+                st = clean(g, max_tip_len=max_tip,
+                           min_cov=cfg.min_contig_cov, pair_count=pc)
         for k, v in st.items():
             self.metrics.add(f"clean_{k}", v)
         return g

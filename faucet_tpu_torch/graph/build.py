@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from faucet_tpu_torch import metrics as M
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core import u32x2 as u2
@@ -53,7 +54,7 @@ def extract_table(tbl: T.Table, mesh=None):
     out = {"hi": u2.to_np_u32(rows(tbl.keys_hi)),
            "lo": u2.to_np_u32(rows(tbl.keys_lo))}
     for i, v in enumerate(tbl.vals):
-        out[f"v{i}"] = rows(v).cpu().numpy()
+        out[f"v{i}"] = M.fetch(rows(v))
     return out
 
 
@@ -228,7 +229,14 @@ class GraphBuilder:
 
     def _run_walks(self, codec, payload, dirs, forced, circle_ok):
         """Run all walks to completion in lockstep waves, COMPACTING the
-        frontier whenever <=1/4 of lanes are still active."""
+        frontier whenever <=1/4 of lanes are still active. Span `walk`:
+        the wave calls' `round`, `resolve` and pending tests (`sync`), and
+        `collect`, the host work between them (seeds to the device,
+        strips and frontier fetched, compaction, capture)."""
+        with M.span("walk"):
+            return self._walk_all(codec, payload, dirs, forced, circle_ok)
+
+    def _walk_all(self, codec, payload, dirs, forced, circle_ok):
         cfg = self.cfg
         n = len(dirs)
         assert n > 0
@@ -242,8 +250,9 @@ class GraphBuilder:
 
         active = np.zeros(Wp, bool)
         active[:n] = True
-        fr = codec.make_frontier(payload, dirs, forced, active,
-                                 circle_ok, pad)
+        with M.span("collect"):
+            fr = codec.make_frontier(payload, dirs, forced, active,
+                                     circle_ok, pad)
         orig = np.arange(Wp)  # current lane -> original lane
         parts: List[List[np.ndarray]] = [[] for _ in range(n)]
         res_kind = np.zeros(n, np.int32)
@@ -260,9 +269,9 @@ class GraphBuilder:
             if not len(idx):
                 return
             st = codec.end_state(fr)
-            res_kind[o] = fr.end_kind.cpu().numpy()[idx]
-            res_slot[o] = fr.entry_slot.cpu().numpy()[idx]
-            res_steps[o] = fr.steps.cpu().numpy()[idx]
+            res_kind[o] = M.fetch(fr.end_kind)[idx]
+            res_slot[o] = M.fetch(fr.entry_slot)[idx]
+            res_steps[o] = M.fetch(fr.steps)[idx]
             res_key[o] = codec.end_keys(st, idx)
             for j, oi in zip(idx, o):
                 if res_kind[oi] == W.END_JUNCTION:
@@ -286,36 +295,38 @@ class GraphBuilder:
                     walk_fn=functools.partial(codec.walk_round(),
                                               junc_fn=self._junc_fn),
                     resolve_fn=codec.resolver())
-            b = bases.cpu().numpy()
-            mask = b != 255
-            counts = mask.sum(axis=1)
-            segs = np.split(b[mask], np.cumsum(counts)[:-1])
-            for i in np.nonzero(counts[: len(orig)])[0]:
-                if orig[i] < n:
-                    parts[orig[i]].append(segs[i])
-            total += rr * ss
-            # pending = active or not-yet-judged ambiguous retirees
-            act = (fr.active | (fr.end_kind == W.END_AMBIG)).cpu().numpy()
-            live = int(act.sum())
-            if live == 0:
-                break
-            cur = act.shape[0]
-            if live <= cur // 4 and cur > 64:
-                newp = _pad_pow2(live, lo=64)
-                capture(fr, ~act)
-                idx = np.nonzero(act)[0]
-                fr = self._gather_frontier(fr, idx, newp)
-                orig = orig[idx]
-        capture(fr, np.ones(fr.active.shape[0], bool))
-        empty = np.empty(0, np.uint8)
-        return {
-            "bases": [np.concatenate(p) if p else empty for p in parts],
-            "end_kind": res_kind,
-            "entry_slot": res_slot,
-            "steps": res_steps,
-            "end_key": res_key,
-            "end_str": res_str,
-        }
+            with M.span("collect"):
+                b = M.fetch(bases)
+                mask = b != 255
+                counts = mask.sum(axis=1)
+                segs = np.split(b[mask], np.cumsum(counts)[:-1])
+                for i in np.nonzero(counts[: len(orig)])[0]:
+                    if orig[i] < n:
+                        parts[orig[i]].append(segs[i])
+                total += rr * ss
+                # pending = active or not-yet-judged ambiguous retirees
+                act = M.fetch(fr.active | (fr.end_kind == W.END_AMBIG))
+                live = int(act.sum())
+                if live == 0:
+                    break
+                cur = act.shape[0]
+                if live <= cur // 4 and cur > 64:
+                    newp = _pad_pow2(live, lo=64)
+                    capture(fr, ~act)
+                    idx = np.nonzero(act)[0]
+                    fr = self._gather_frontier(fr, idx, newp)
+                    orig = orig[idx]
+        with M.span("collect"):
+            capture(fr, np.ones(fr.active.shape[0], bool))
+            empty = np.empty(0, np.uint8)
+            return {
+                "bases": [np.concatenate(p) if p else empty for p in parts],
+                "end_kind": res_kind,
+                "entry_slot": res_slot,
+                "steps": res_steps,
+                "end_key": res_key,
+                "end_str": res_str,
+            }
 
     def _routed_waves(self, fr, n_rounds: int, n_steps: int):
         """One wave call with the frontier's lanes split over the ranks:
@@ -342,138 +353,146 @@ class GraphBuilder:
         return "".join(_CODEBOOK[b] for b in row[:steps])
 
     def build(self) -> ContigGraph:
+        """Spans: `extract` (tables to the host, junction index), `pass1`
+        (walks from junction slots, their contigs), `pass2` (visited
+        k-mers, walks from sink anchors), `repair` (port clashes)."""
         cfg = self.cfg
         k = cfg.size_kmer
-        jt = extract_table(self.junctions, self.mesh)
-        n_j = len(jt["hi"])
-        cov8 = jt.get("v0", np.zeros((0, 8), np.int32))
-        dist8 = jt.get("v1", np.zeros((0, 8), np.int32))
-        jkeys = u2.to_int(jt["hi"], jt["lo"])
-        order = np.argsort(jkeys, kind="stable")
-        for key in list(jt.keys()):
-            jt[key] = jt[key][order]
-        jkeys, cov8, dist8 = jkeys[order], cov8[order], dist8[order]
-        jcov_by_key: Dict[int, np.ndarray] = {
-            int(kk): cov8[i] for i, kk in enumerate(jkeys)}
-        all_rows = list(range(n_j))
-        jnode_strs = self.codec_j.node_strs(jt, all_rows) if n_j else []
-        # the walks' junction oracle: the sorted occupied keys (routed
-        # walks: this rank's own, which answer the junction tests routed
-        # to it; dist/swalk.py)
-        if self.mesh is None:
-            self._junc_fn = W.sorted_member(torch.from_numpy(
-                jkeys.astype(np.int64)).to(self.device))
-        else:
-            occ = T.occupied_mask(self.junctions)
-            self._owned_keys = torch.sort(u2.pack(
-                u2.from_i32(self.junctions.keys_hi[:-1][occ]),
-                u2.from_i32(self.junctions.keys_lo[:-1][occ]))).values
+        with M.span("extract"):
+            jt = extract_table(self.junctions, self.mesh)
+            n_j = len(jt["hi"])
+            cov8 = jt.get("v0", np.zeros((0, 8), np.int32))
+            dist8 = jt.get("v1", np.zeros((0, 8), np.int32))
+            jkeys = u2.to_int(jt["hi"], jt["lo"])
+            order = np.argsort(jkeys, kind="stable")
+            for key in list(jt.keys()):
+                jt[key] = jt[key][order]
+            jkeys, cov8, dist8 = jkeys[order], cov8[order], dist8[order]
+            jcov_by_key: Dict[int, np.ndarray] = {
+                int(kk): cov8[i] for i, kk in enumerate(jkeys)}
+            all_rows = list(range(n_j))
+            jnode_strs = self.codec_j.node_strs(jt, all_rows) if n_j else []
+            # the walks' junction oracle: the sorted occupied keys (routed
+            # walks: this rank's own, which answer the junction tests
+            # routed to it; dist/swalk.py)
+            if self.mesh is None:
+                self._junc_fn = W.sorted_member(torch.from_numpy(
+                    jkeys.astype(np.int64)).to(self.device))
+            else:
+                occ = T.occupied_mask(self.junctions)
+                self._owned_keys = torch.sort(u2.pack(
+                    u2.from_i32(self.junctions.keys_hi[:-1][occ]),
+                    u2.from_i32(self.junctions.keys_lo[:-1][occ]))).values
 
-        # sink/cap anchors (extracted once; pass-1 FP-trim + pass-2 seeds)
-        st = extract_table(self.sinks, self.mesh)
-        skeys = u2.to_int(st["hi"], st["lo"])
-        order = np.argsort(skeys, kind="stable")
-        for key in list(st.keys()):
-            st[key] = st[key][order]
-        self._sink_keys = np.sort(np.asarray(skeys, np.uint64))
+            # sink/cap anchors (extracted once; pass-1 FP-trim, pass-2
+            # seeds)
+            st = extract_table(self.sinks, self.mesh)
+            skeys = u2.to_int(st["hi"], st["lo"])
+            order = np.argsort(skeys, kind="stable")
+            for key in list(st.keys()):
+                st[key] = st[key][order]
+            self._sink_keys = np.sort(np.asarray(skeys, np.uint64))
 
         by_key: Dict[str, Contig] = {}
 
         # ---- pass 1: walks from every covered junction slot -------------
-        rows, slots = np.nonzero(cov8 > 0)
-        if len(rows):
-            dirs = (slots >= 4).astype(np.int32)
-            forced = np.where(slots < 4, slots, 3 - (slots - 4)).astype(
-                np.int32)
-            out = self._run_walks(self.codec_j,
-                                  self.codec_j.seed_payload(jt, rows),
-                                  dirs, forced, np.zeros(len(rows), bool))
-            for i in range(len(rows)):
-                c = self._pass1_contig(
-                    jnode_strs[rows[i]], int(slots[i]), cov8[rows[i]],
-                    dist8[rows[i]], out, i, jcov_by_key)
-                if c is not None:
-                    by_key.setdefault(c.canonical_seq(), c)
-
-        # visited k-mers as uint64 table keys in sorted chunks, merged
-        # LSM-style (adjacent chunks within 2x size merge on append)
-        chunks: List[np.ndarray] = []
-
-        def mark_visited(c: Contig):
-            src = c.seq + (c.seq[: k - 1] if c.circular else "")
-            w = self.codec_s.key_windows(src)
-            if not len(w):
-                return
-            w.sort()
-            chunks.append(w)
-            while len(chunks) >= 2 and \
-                    len(chunks[-2]) <= 2 * len(chunks[-1]):
-                b = chunks.pop()
-                a = chunks.pop()
-                m = np.concatenate([a, b])
-                m.sort()
-                chunks.append(m)
-
-        def visited_mask(keys: np.ndarray) -> np.ndarray:
-            hit = np.zeros(len(keys), bool)
-            for ch in chunks:
-                idx = np.searchsorted(ch, keys)
-                idx = np.minimum(idx, len(ch) - 1)
-                hit |= ch[idx] == keys
-            return hit
-
-        # pass 1's contigs go in as one sorted chunk, keyed in one call
-        # (membership is the same as marking them one by one)
-        w = self.codec_s.key_windows_many(
-            [c.seq + (c.seq[: k - 1] if c.circular else "")
-             for c in by_key.values()])
-        if len(w):
-            w.sort()
-            chunks.append(w)
+        with M.span("pass1"):
+            rows, slots = np.nonzero(cov8 > 0)
+            if len(rows):
+                dirs = (slots >= 4).astype(np.int32)
+                forced = np.where(slots < 4, slots, 3 - (slots - 4)).astype(
+                    np.int32)
+                out = self._run_walks(
+                    self.codec_j, self.codec_j.seed_payload(jt, rows), dirs,
+                    forced, np.zeros(len(rows), bool))
+                for i in range(len(rows)):
+                    c = self._pass1_contig(
+                        jnode_strs[rows[i]], int(slots[i]), cov8[rows[i]],
+                        dist8[rows[i]], out, i, jcov_by_key)
+                    if c is not None:
+                        by_key.setdefault(c.canonical_seq(), c)
 
         # ---- pass 2: junction-free components from sink anchors ---------
-        jset = np.asarray(sorted({int(x) for x in jkeys}), np.uint64)
-        n_s = len(st["hi"])
-        skeys_s = u2.to_int(st["hi"], st["lo"])
-        chunk = 4096
-        pend = np.arange(n_s)[~np.isin(skeys_s, jset)]
-        while len(pend):
-            live = ~visited_mask(skeys_s[pend])
-            pend = pend[live]
-            if len(pend) and not cfg.wide:
-                # seeds one base OFF walked territory walk straight back
-                # onto it; skip them by testing the 8 neighbors
-                nbr = neighbor_keys_np(skeys_s[pend], k)
-                hit = visited_mask(nbr.ravel()).reshape(nbr.shape)
-                pend = pend[~hit.any(axis=1)]
-            batch = pend[:chunk].tolist()
-            pend = pend[chunk:]
-            if not batch:
-                break
-            snode_strs = {i: s for i, s in zip(
-                batch, self.codec_s.node_strs(st, batch))}
-            new = self._pass2_contigs(st, batch, snode_strs)
-            for c in new:
-                key = c.canonical_seq()
-                if key in by_key:
-                    continue
-                # drop near-duplicates of already-walked paths (a sink
-                # anchor one base OFF a real path re-walks it)
-                w = self.codec_s.key_windows(
-                    c.seq + (c.seq[: k - 1] if c.circular else ""))
-                if len(w) and visited_mask(w).mean() > 0.5:
-                    continue
-                by_key[key] = c
-                mark_visited(c)
+        with M.span("pass2"):
+            # visited k-mers as uint64 table keys in sorted chunks, merged
+            # LSM-style (adjacent chunks within 2x size merge on append)
+            chunks: List[np.ndarray] = []
 
-        g = ContigGraph(k, list(by_key.values()))
+            def mark_visited(c: Contig):
+                src = c.seq + (c.seq[: k - 1] if c.circular else "")
+                w = self.codec_s.key_windows(src)
+                if not len(w):
+                    return
+                w.sort()
+                chunks.append(w)
+                while len(chunks) >= 2 and \
+                        len(chunks[-2]) <= 2 * len(chunks[-1]):
+                    b = chunks.pop()
+                    a = chunks.pop()
+                    m = np.concatenate([a, b])
+                    m.sort()
+                    chunks.append(m)
+
+            def visited_mask(keys: np.ndarray) -> np.ndarray:
+                hit = np.zeros(len(keys), bool)
+                for ch in chunks:
+                    idx = np.searchsorted(ch, keys)
+                    idx = np.minimum(idx, len(ch) - 1)
+                    hit |= ch[idx] == keys
+                return hit
+
+            # pass 1's contigs go in as one sorted chunk, keyed in one call
+            # (membership is the same as marking them one by one)
+            w = self.codec_s.key_windows_many(
+                [c.seq + (c.seq[: k - 1] if c.circular else "")
+                 for c in by_key.values()])
+            if len(w):
+                w.sort()
+                chunks.append(w)
+
+            jset = np.asarray(sorted({int(x) for x in jkeys}), np.uint64)
+            n_s = len(st["hi"])
+            skeys_s = u2.to_int(st["hi"], st["lo"])
+            chunk = 4096
+            pend = np.arange(n_s)[~np.isin(skeys_s, jset)]
+            while len(pend):
+                live = ~visited_mask(skeys_s[pend])
+                pend = pend[live]
+                if len(pend) and not cfg.wide:
+                    # seeds one base OFF walked territory walk straight
+                    # back onto it; skip them by testing the 8 neighbors
+                    nbr = neighbor_keys_np(skeys_s[pend], k)
+                    hit = visited_mask(nbr.ravel()).reshape(nbr.shape)
+                    pend = pend[~hit.any(axis=1)]
+                batch = pend[:chunk].tolist()
+                pend = pend[chunk:]
+                if not batch:
+                    break
+                snode_strs = {i: s for i, s in zip(
+                    batch, self.codec_s.node_strs(st, batch))}
+                new = self._pass2_contigs(st, batch, snode_strs)
+                for c in new:
+                    key = c.canonical_seq()
+                    if key in by_key:
+                        continue
+                    # drop near-duplicates of already-walked paths (a sink
+                    # anchor one base OFF a real path re-walks it)
+                    w = self.codec_s.key_windows(
+                        c.seq + (c.seq[: k - 1] if c.circular else ""))
+                    if len(w) and visited_mask(w).mean() > 0.5:
+                        continue
+                    by_key[key] = c
+                    mark_visited(c)
+
         # repair merged walks (missed-junction port clashes) before
         # cleaning — see clean.resolve_port_clashes
-        from faucet_tpu_torch.graph.clean import (repair_ports,
-                                                  resolve_port_clashes)
+        with M.span("repair"):
+            g = ContigGraph(k, list(by_key.values()))
+            from faucet_tpu_torch.graph.clean import (repair_ports,
+                                                      resolve_port_clashes)
 
-        resolve_port_clashes(g)
-        repair_ports(g)
+            resolve_port_clashes(g)
+            repair_ports(g)
         return g
 
     def _pass1_contig(self, node: str, slot: int, cov8, dist8, out, i,

@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from faucet_tpu_torch import metrics as M
 from faucet_tpu_torch.core import bloom as BL
 from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.core import u32x2 as u2
@@ -199,7 +200,7 @@ def _top_beam(score):
 
 
 def _local_any(m) -> bool:
-    return bool(m.any())
+    return bool(M.fetch(m.any()))
 
 
 def resolve_ambiguous(cascade: BL.Cascade, fr: Frontier, cfg,
@@ -363,7 +364,7 @@ def resolve_ambiguous_wide(cascade: BL.Cascade, fr: FrontierW, cfg
     solid_fn = lambda chi, clo, m: BL.cascade_solid(cascade, chi, clo, m,
                                                     cfg)
     amb_all = (fr.end_kind == END_AMBIG) & ~fr.active
-    if not bool(amb_all.any()):
+    if not _local_any(amb_all):
         return fr
     CAP = _resolve_cap(fr.forced.shape[0])
     lanes = torch.sort(amb_all.to(torch.uint8), descending=True,
@@ -412,7 +413,9 @@ def walk_waves(cascade: BL.Cascade, junctions: T.Table, fr, n_rounds: int,
     unanswered.
 
     Returns (frontier, bases u8[W, n_rounds*n_steps], rounds_executed);
-    bases is 255 where no advance happened."""
+    bases is 255 where no advance happened. Each round is a span `round`,
+    its resolution a span `resolve`; `walk_rounds` and `walk_steps`
+    (rounds x n_steps) count them."""
     walk_fn = walk_fn or walk_round
     resolve_fn = resolve_fn or resolve_ambiguous
 
@@ -426,8 +429,12 @@ def walk_waves(cascade: BL.Cascade, junctions: T.Table, fr, n_rounds: int,
                        device=fr.steps.device)
     r = 0
     while r < n_rounds and pending(fr):
-        fr, b = walk_fn(cascade, junctions, fr, n_steps=n_steps, cfg=cfg)
-        fr = resolve_fn(cascade, fr, cfg)
+        with M.span("round"):
+            fr, b = walk_fn(cascade, junctions, fr, n_steps=n_steps, cfg=cfg)
+        with M.span("resolve"):
+            fr = resolve_fn(cascade, fr, cfg)
         bases[:, r * n_steps:(r + 1) * n_steps] = b
         r += 1
+    M.count("walk_rounds", r)
+    M.count("walk_steps", r * n_steps)
     return fr, bases, r

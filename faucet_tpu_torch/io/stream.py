@@ -5,7 +5,8 @@ The reader/packer produces (bases uint8[B, L], lens int32[B]) numpy
 batches on a background thread; for a CUDA device the thread pins each
 batch and starts its copy with non_blocking=True, so the transfer
 overlaps the device's work on the previous batch. A bounded queue keeps
-memory flat for arbitrarily long streams.
+memory flat for arbitrarily long streams. The consumer's wait for the
+next batch is the span `feed_wait`.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from faucet_tpu_torch import metrics as M
 
 _SENTINEL = object()
 
@@ -45,7 +48,8 @@ def prefetch_batches(batches: Iterable, device, depth: int = 2) -> Iterator:
                           name="faucet-io-prefetch")
     th.start()
     while True:
-        item = q.get()
+        with M.span("feed_wait"):
+            item = q.get()
         if item is _SENTINEL:
             break
         yield item

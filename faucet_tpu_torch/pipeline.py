@@ -100,8 +100,9 @@ class Pipeline:
         scan/stream phase ends, so checkpoint save and graph build always
         see the complete table)."""
         if self.jspool is not None and self.jspool.cnt > 0:
-            self.junctions, self.jspool = SC.spool_flush(
-                self.junctions, self.jspool, self.cfg)
+            with self.metrics.span("flush"):
+                self.junctions, self.jspool = SC.spool_flush(
+                    self.junctions, self.jspool, self.cfg)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -119,22 +120,28 @@ class Pipeline:
         prefetched on a reader thread (io/stream.py)."""
         from faucet_tpu_torch.io.stream import prefetch_batches
 
-        m = self.metrics
-        m.start("load")
-        for bases, lens in prefetch_batches(batches, self.device):
-            self.load_batch(bases, lens)
-        self._sync()
-        m.stop("load")
+        with self.metrics.span("load"):
+            for bases, lens in prefetch_batches(batches, self.device):
+                self.load_batch(bases, lens)
+            self._sync()
 
     def load_batch(self, bases, lens):
+        with self.metrics.span("load_batch"):
+            self._insert(bases, lens)
+
+    def _insert(self, bases, lens):
+        """Insert a batch into the cascade(s); returns (bases on the
+        device, the windows' B-solidity grid)."""
         bases, lens_d = self._bases(bases), self._lens(lens)
         if self.node_cascade is not None:
-            self.cascade, self.node_cascade, _n_new = SC.load_batch_nodes(
-                self.cascade, self.node_cascade, bases, lens_d, cfg=self.cfg)
+            (self.cascade, self.node_cascade, _n,
+             ws) = SC.load_batch_nodes_s(self.cascade, self.node_cascade,
+                                         bases, lens_d, cfg=self.cfg)
         else:
-            self.cascade = SC.load_batch(self.cascade, bases, lens_d,
-                                         cfg=self.cfg)
+            self.cascade, ws = SC.load_batch_s(self.cascade, bases, lens_d,
+                                               cfg=self.cfg)
         self.metrics.add("reads_loaded", int((np.asarray(lens) > 0).sum()))
+        return bases, ws
 
     def _bases(self, bases):
         if isinstance(bases, np.ndarray):
@@ -148,53 +155,46 @@ class Pipeline:
     def scan_batches(self, batches):
         from faucet_tpu_torch.io.stream import prefetch_batches
 
-        m = self.metrics
-        m.start("scan")
-        for bases, lens in prefetch_batches(batches, self.device):
-            self.scan_batch(bases, lens)
-        self.flush_junctions()
-        self._sync()
-        m.stop("scan")
+        with self.metrics.span("scan"):
+            for bases, lens in prefetch_batches(batches, self.device):
+                self.scan_batch(bases, lens)
+            self.flush_junctions()
+            self._sync()
 
     def scan_batch(self, bases, lens, window_solid=None):
-        res = SC.scan_batch(self.cascade, self.junctions, self.sinks,
-                            self._bases(bases), self._lens(lens),
-                            cfg=self.cfg, node_cascade=self.node_cascade,
-                            window_solid=window_solid, jspool=self.jspool)
-        self.junctions = res.junctions
-        self.sinks = res.sinks
-        if res.jspool is not None:
-            self.jspool = res.jspool
-        self.metrics.add("reads_scanned", int((np.asarray(lens) > 0).sum()))
-        self.metrics.add("solid_windows", int(res.n_solid))
-        self.metrics.add("junction_hits", int(res.n_junc_pos))
+        m = self.metrics
+        with m.span("scan_batch"):
+            res = SC.scan_batch(self.cascade, self.junctions, self.sinks,
+                                self._bases(bases), self._lens(lens),
+                                cfg=self.cfg, node_cascade=self.node_cascade,
+                                window_solid=window_solid, jspool=self.jspool)
+            self.junctions = res.junctions
+            self.sinks = res.sinks
+            if res.jspool is not None:
+                self.jspool = res.jspool
+            m.add("reads_scanned", int((np.asarray(lens) > 0).sum()))
+            m.add("solid_windows", res.n_solid)
+            m.add("junction_hits", res.n_junc_pos)
         return res
 
     def stream_step(self, bases, lens):
         """Fused single-pass step: insert the batch, then scan it with
         the window solidity the insert pass computed (the scan's own
         window probe disappears)."""
-        bases, lens_d = self._bases(bases), self._lens(lens)
-        if self.node_cascade is not None:
-            (self.cascade, self.node_cascade, _n,
-             ws) = SC.load_batch_nodes_s(self.cascade, self.node_cascade,
-                                         bases, lens_d, cfg=self.cfg)
-        else:
-            self.cascade, ws = SC.load_batch_s(self.cascade, bases, lens_d,
-                                               cfg=self.cfg)
-        self.metrics.add("reads_loaded", int((np.asarray(lens) > 0).sum()))
-        return self.scan_batch(bases, lens, window_solid=ws)
+        m = self.metrics
+        with m.span("stream_step"):
+            with m.span("load"):
+                bases, ws = self._insert(bases, lens)
+            return self.scan_batch(bases, lens, window_solid=ws)
 
     def scan_paired(self, reads: Iterable[str]):
         """Scan an interleaved mate stream; captures junction pairs for
         disentanglement alongside the normal junction updates."""
-        m = self.metrics
-        m.start("scan")
-        for packed in self._mate_batches(reads):
-            self._scan_pair_packed(*packed)
-        self.flush_junctions()
-        self._sync()
-        m.stop("scan")
+        with self.metrics.span("scan"):
+            for packed in self._mate_batches(reads):
+                self._scan_pair_packed(*packed)
+            self.flush_junctions()
+            self._sync()
 
     def _mate_batches(self, reads: Iterable[str]):
         """Interleaved mates -> packed (bases1, lens1, bases2, lens2), up
@@ -225,14 +225,12 @@ class Pipeline:
         Row counts must be even."""
         from faucet_tpu_torch.io.stream import prefetch_batches
 
-        m = self.metrics
-        m.start("scan")
-        for bases, lens in prefetch_batches(batches, self.device):
-            self._scan_pair_packed(bases[0::2], lens[0::2], bases[1::2],
-                                   lens[1::2])
-        self.flush_junctions()
-        self._sync()
-        m.stop("scan")
+        with self.metrics.span("scan"):
+            for bases, lens in prefetch_batches(batches, self.device):
+                self._scan_pair_packed(bases[0::2], lens[0::2], bases[1::2],
+                                       lens[1::2])
+            self.flush_junctions()
+            self._sync()
 
     def pair_counts(self):
         """Host dict: pair-hash key -> count (consumed by disentangle)."""
@@ -251,14 +249,13 @@ class Pipeline:
         if self.cfg.prune_slot_cov > 0:
             self.junctions = prune_slots(self.junctions,
                                          self.cfg.prune_slot_cov)
-        m.start("build")
-        g = GraphBuilder(self.cfg, self.cascade, self.junctions,
-                         self.sinks).build()
-        m.stop("build")
-        m.add("junctions", int(self.junctions.count))
-        m.add("junctions_dropped", int(self.junctions.dropped))
-        m.add("sink_anchors", int(self.sinks.count))
-        m.add("sinks_dropped", int(self.sinks.dropped))
+        with m.span("build"):
+            g = GraphBuilder(self.cfg, self.cascade, self.junctions,
+                             self.sinks).build()
+        m.add("junctions", self.junctions.count)
+        m.add("junctions_dropped", self.junctions.dropped)
+        m.add("sink_anchors", self.sinks.count)
+        m.add("sinks_dropped", self.sinks.dropped)
         m.add("contigs_raw", len(g.live()))
         return g
 
@@ -284,13 +281,12 @@ class Pipeline:
         if cfg.no_cleaning:
             return g
         m = self.metrics
-        m.start("clean")
-        st = clean(g,
-                   max_tip_len=int(cfg.tip_len_factor * cfg.max_read_length),
-                   min_cov=cfg.min_contig_cov,
-                   pair_count=(self._pair_count_fn()
-                               if cfg.paired_ends else None))
-        m.stop("clean")
+        with m.span("clean"):
+            st = clean(g, max_tip_len=int(cfg.tip_len_factor
+                                          * cfg.max_read_length),
+                       min_cov=cfg.min_contig_cov,
+                       pair_count=(self._pair_count_fn()
+                                   if cfg.paired_ends else None))
         for k, v in st.items():
             m.add(f"clean_{k}", v)
         return g
@@ -315,13 +311,11 @@ class Pipeline:
         (batch_reads each) are inserted, then pair-scanned."""
         if not self.cfg.paired_ends:
             return self.run_streaming_batches(batch_iter(reads, self.cfg))
-        m = self.metrics
-        m.start("stream")
-        for packed in self._mate_batches(reads):
-            self._stream_pair_packed(*packed)
-        self.flush_junctions()
-        self._sync()
-        m.stop("stream")
+        with self.metrics.span("stream"):
+            for packed in self._mate_batches(reads):
+                self._stream_pair_packed(*packed)
+            self.flush_junctions()
+            self._sync()
         return self._finish()
 
     def _stream_pair_packed(self, b1, l1, b2, l2):
@@ -335,15 +329,13 @@ class Pipeline:
         both halves, then pair-scan)."""
         from faucet_tpu_torch.io.stream import prefetch_batches
 
-        m = self.metrics
-        m.start("stream")
-        for bases, lens in prefetch_batches(batches, self.device):
-            if self.cfg.paired_ends:
-                self._stream_pair_packed(bases[0::2], lens[0::2],
-                                         bases[1::2], lens[1::2])
-            else:
-                self.stream_step(bases, lens)
-        self.flush_junctions()
-        self._sync()
-        m.stop("stream")
+        with self.metrics.span("stream"):
+            for bases, lens in prefetch_batches(batches, self.device):
+                if self.cfg.paired_ends:
+                    self._stream_pair_packed(bases[0::2], lens[0::2],
+                                             bases[1::2], lens[1::2])
+                else:
+                    self.stream_step(bases, lens)
+            self.flush_junctions()
+            self._sync()
         return self._finish()
