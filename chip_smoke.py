@@ -22,7 +22,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               over 1,000 back-to-back calls of changing size (epoch
               reuse), with torch.nonzero_static beside it as a yardstick;
               B1, B2-B4 and B7 also at the k = 55 path's shapes; B6 also
-              on unaligned, short and past-the-end inputs
+              on unaligned, short and past-the-end inputs; the wide
+              scan's extension keys (csrc/wide_ext.cu) at 8,192 x 46
   3b entries  the scatter-OR kernels' entry points (no caller on the main
               path), core/bloom.bloom_insert and scatter_or_bits: timed,
               then driven and counted, CUDA == CPU; they use only the API
@@ -152,6 +153,15 @@ def note(msg: str):
           file=sys.stderr, flush=True)
 
 
+def _wide_ext():
+    """kernels/wide_ext.py, or None in a tree without it (--root)."""
+    try:
+        from faucet_tpu_torch.kernels import wide_ext as KW
+    except ImportError:
+        return None
+    return KW
+
+
 def zero_counts():
     """Set the main path's launch counts to 0."""
     from faucet_tpu_torch.kernels import cascade as KC
@@ -159,6 +169,9 @@ def zero_counts():
     from faucet_tpu_torch.kernels import probe as KP
 
     KP.launches = KC.launches = KCP.launches = 0
+    KW = _wide_ext()
+    if KW is not None:
+        KW.launches = 0
     variants = getattr(KC, "variant_launches", {})
     variants.update(dict.fromkeys(variants, 0))
 
@@ -461,6 +474,7 @@ def run_kernels():
     res.update(check_cascade(gen, dev, lib))
     res.update(check_scatter(gen, dev, lib))
     res.update(check_compact(gen, dev, lib))
+    res.update(check_wide_ext(gen, dev, lib))
     report["kernels"] = res
     return res
 
@@ -844,6 +858,51 @@ def check_compact(gen, dev, lib, cases=COMPACT_CASES, prefix="compact_",
     log(f"mask_indices: 1000 back-to-back calls (epoch wrapping every 300),"
         f" {len(kept)} held to the plain version: identical")
     return res
+
+
+# integer instructions per window of csrc/wide_ext.cu: per slot two
+# ft_hash calls and the final pair (6 fmix32), the shifts, the compare and
+# the select, ~60
+WIDE_EXT_OPS = 8 * 60
+
+
+def check_wide_ext(gen, dev, lib, k: int = 55, B: int = 8192, L: int = 100):
+    """slot_ext_keys (csrc/wide_ext.cu, no Pallas counterpart) against its
+    plain version at the k = 55 stream batch's windows: 8,192 reads of
+    100 bp made on the card, 1% N, 46 windows a read."""
+    import torch
+
+    from faucet_tpu_torch.core import wide as WD
+    from faucet_tpu_torch.kernels import build as KB
+    from faucet_tpu_torch.kernels import wide_ext as KW
+
+    bases = torch.randint(0, 4, (B, L), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    bases[torch.rand((B, L), generator=gen, device=dev) < 0.01] = 4
+    wv = WD.kmerize_wide(bases, torch.full((B,), L, dtype=torch.int32,
+                                           device=dev), k)
+    canon, other = wv.canon, WD.wselect(wv.canon_is_fwd, wv.rc, wv.fwd)
+    got = KW.slot_ext_keys(canon, other, k)
+    want = WD.slot_ext_keys_wide_plain(canon, other, k)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if err:
+        raise AssertionError("slot_ext_keys != plain")
+    n = canon[0].numel()
+    his, los = torch.empty_like(got[0]), torch.empty_like(got[1])
+    raw = lambda: KB.check(lib.ft_wide_ext_keys(
+        canon.data_ptr(), other.data_ptr(), n, k, his.data_ptr(),
+        los.data_ptr(), KB.stream_of(canon)), "wide_ext_keys")
+    rec = {"shape": list(canon.shape[1:]), "k": k,
+           "ms": cuda_ms(lambda: KW.slot_ext_keys(canon, other, k), 20),
+           "device_ms": launch_loop_ms(raw),
+           "plain_ms": cuda_ms(
+               lambda: WD.slot_ext_keys_wide_plain(canon, other, k), 20),
+           "library_ms": None, "max_abs_err": err,
+           # each window's 8 input words and 16 output keys, as int64
+           **bound(192 * n, WIDE_EXT_OPS * n)}
+    log_kernel(f"slot_ext_keys k = {k} {list(canon.shape[1:])}", rec)
+    return {f"wide_ext_{B}x{n // B}": rec}
 
 
 @phase("entries")
@@ -1372,6 +1431,14 @@ def run_wide(profile: bool = False):
            "junctions": int(p.junctions.count), "sinks": int(p.sinks.count)}
     frac = genome_true_frac(contigs, genome)
     ms_step = 1e3 * wst["seconds"] / max(wst["steps"], 1)
+    # the extension keys: one launch a scan batch (zero_counts ran just
+    # before this phase)
+    KW = _wide_ext()
+    wide_ext = None if KW is None else KW.launches
+    log(f"wide_ext launches {wide_ext}, scan batches {n_batches}")
+    if wide_ext not in (None, n_batches):
+        raise AssertionError(f"wide_ext launches {wide_ext} != "
+                             f"{n_batches} scan batches")
     log(f"wide assembly {got}, genome-true {frac:.5f}; walk: "
         f"{wst['rounds']} rounds, {wst['steps']} steps timed in "
         f"{wst['seconds']:.2f} s, {ms_step:.3f} ms/step")
@@ -1385,7 +1452,7 @@ def run_wide(profile: bool = False):
         phase_s=ph, walk=wst, walk_ms_per_step=ms_step, genome_true=frac,
         b1_per_scan_batch={x: lanes[x] / n_batches
                            for x in ("queries", "grid", "live")},
-        b7_set_share=share,
+        b7_set_share=share, wide_ext_launches=wide_ext,
         peak_bytes=peak, **got)
     if got != WIDE_RECORD:
         raise AssertionError(f"wide {got} != record {WIDE_RECORD}")

@@ -348,7 +348,8 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
         words = wv.canon.permute(1, 2, 0)  # [B, P, 4]
 
         def ext_keys():
-            return WD.slot_ext_keys_wide(wv.canon, other, k)
+            with M.span("ext_keys"):
+                return WD.slot_ext_keys_wide(wv.canon, other, k)
     B, P = key_hi.shape
     solid = (window_solid & valid) if window_solid is not None \
         else solid_fn(key_hi, key_lo, valid)

@@ -1,4 +1,5 @@
-// Device hashing of k-mer codes, shared by the probe and cascade kernels.
+// Device hashing of k-mer codes, shared by the Bloom kernels and the wide
+// scan's extension keys (wide_ext.cu).
 //
 // Bit for bit the torch functions faucet_tpu_torch/core/hashing.py
 // hash_pair and kernels/probe.py _block_from_hash (after the reference's

@@ -21,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("probe.cu", "cascade.cu", "bloom_scatter.cu", "compact.cu")
+SOURCES = ("probe.cu", "cascade.cu", "bloom_scatter.cu", "compact.cu",
+           "wide_ext.cu")
 HEADERS = ("bloom_bits.cuh", "hash.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,6 +110,8 @@ def library() -> ctypes.CDLL:
         lib.ft_scatter_or_bits.argtypes = [p, i64, p, i64, p]
         lib.ft_mask_indices.restype = i32
         lib.ft_mask_indices.argtypes = [p, i64, p, i64, p, p, i64, i32, p]
+        lib.ft_wide_ext_keys.restype = i32
+        lib.ft_wide_ext_keys.argtypes = [p, p, i64, i32, p, p, p]
         lib.ft_error_string.restype = ctypes.c_char_p
         lib.ft_error_string.argtypes = [i32]
         _lib = lib

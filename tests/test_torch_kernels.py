@@ -1,5 +1,5 @@
-"""faucet_tpu_torch kernel modules (probe, cascade, bloom_scatter, compact)
-vs the reference.
+"""faucet_tpu_torch kernel modules (probe, cascade, bloom_scatter, compact,
+wide_ext) vs the reference.
 
 On the CPU the wrappers take their plain torch versions; those are held
 to the reference's CPU formulation (core/bloom.py) exactly, and to the
@@ -26,6 +26,7 @@ from faucet_tpu_torch.kernels import bloom_scatter as KS
 from faucet_tpu_torch.kernels import cascade as KC
 from faucet_tpu_torch.kernels import compact as KCP
 from faucet_tpu_torch.kernels import probe as KP
+from faucet_tpu_torch.kernels import wide_ext as KW
 
 # the suite runs in several worker processes on few cores: one torch
 # thread each (tiny CPU tensors gain nothing from more)
@@ -300,6 +301,41 @@ def test_wrappers_take_plain_version_on_cpu():
     idx, cnt = KCP.mask_indices(torch.zeros(4, dtype=torch.bool), 2)
     assert idx.shape == (2,) and int(cnt) == 0
     assert _launches() == before
+
+
+def _wide_windows(rng, k, B, L=100, device="cpu"):
+    """Wide windows of numpy-made reads with N bases (code 4) and lens
+    shorter than L, some shorter than k: the canonical code, the other
+    frame (core/scan.py scan_core's `other`) and the view."""
+    from faucet_tpu_torch.core import wide as TW
+
+    bases = rng.integers(0, 4, size=(B, L)).astype(np.uint8)
+    bases[rng.random((B, L)) < 0.01] = 4
+    lens = rng.integers(k - 8, L + 1, size=B).astype(np.int32)
+    wv = TW.kmerize_wide(torch.from_numpy(bases).to(device),
+                         torch.from_numpy(lens).to(device), k)
+    return wv.canon, TW.wselect(wv.canon_is_fwd, wv.rc, wv.fwd), wv
+
+
+def test_wide_ext_takes_plain_version_on_cpu_and_checks_arguments(rng):
+    from faucet_tpu_torch.core import wide as TW
+
+    canon, other, _ = _wide_windows(rng, 55, 16)
+    before = KW.launches
+    got = KW.slot_ext_keys(canon, other, 55)
+    want = TW.slot_ext_keys_wide_plain(canon, other, 55)
+    assert KW.launches == before  # CPU tensors take the plain version
+    for g, w in zip(got, want):
+        assert g.shape == canon.shape[1:] + (8,) and torch.equal(g, w)
+    bad = [(canon.to(torch.int32), other, 55),   # dtype
+           (canon, other.to(torch.int32), 55),
+           (canon[:3], other[:3], 55),           # not four words
+           (canon, other[:, :8], 55),            # shapes differ
+           (canon, other, 31), (canon, other, 64)]   # k not wide
+    for args in bad:
+        with pytest.raises(ValueError):
+            KW.slot_ext_keys(*args)
+    assert KW.launches == before
 
 
 def _filter(rng, W):
@@ -732,6 +768,35 @@ def test_scatter_or_bits_cases_on_card(cuda, case, offset):
     torch.cuda.synchronize()
     assert KS.launches_bits == before + (1 if pos.numel() else 0)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 47, 48, 49, 55, 63])
+def test_wide_ext_on_card(cuda, k):
+    """csrc/wide_ext.cu == the plain version bit for bit, all 8 slots:
+    word boundaries (k = 47, 48, 49), the top bit at word 0 (k = 63),
+    2k = 96 (k = 48); both canonical frames and invalid windows occur. At
+    k = 55 the stream cell's 8,192 x 46 windows."""
+    from faucet_tpu_torch.core import wide as TW
+
+    rng = np.random.default_rng(1300 + k)
+    canon, other, wv = _wide_windows(rng, k, 8192 if k == 55 else 1024,
+                                     device=cuda)
+    cisf, valid = wv.canon_is_fwd, wv.valid
+    assert cisf.any() and (~cisf).any() and valid.any() and (~valid).any()
+    before = KW.launches
+    got = KW.slot_ext_keys(canon, other, k)
+    torch.cuda.synchronize()
+    assert KW.launches == before + 1
+    want = TW.slot_ext_keys_wide_plain(canon, other, k)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == canon.shape[1:] + (8,)
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], got[0] & 0x3FFFFFFF)
+    # the wrapper reads a non-contiguous input as its contiguous copy
+    g2 = KW.slot_ext_keys(canon[:, ::2], other[:, ::2], k)
+    assert torch.equal(g2[0], want[0][::2]) and torch.equal(g2[1],
+                                                             want[1][::2])
 
 
 @pytest.mark.cuda

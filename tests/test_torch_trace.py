@@ -173,6 +173,21 @@ def test_a_profiled_stream_step_holds_its_syncs(reads, k):
         <= names
 
 
+@pytest.mark.parametrize("k", [21, 55])
+def test_the_wide_scan_spans_its_extension_keys(reads, k):
+    """A k = 55 stream step builds the ext8 test's extension keys in the
+    span stream_step/scan_batch/ext_keys; a k = 21 step (narrow
+    codes, the node cascade) has no such span. On the CPU the keys take
+    the plain version, so no kernel launch is tallied."""
+    cfg = _cfg(k)
+    p = Pipeline(cfg, device="cpu")
+    for bases, lens in _batches(reads, cfg)[:2]:
+        p.stream_step(bases, lens)
+    spans = [x for x in p.metrics.timers if x.endswith("ext_keys")]
+    assert spans == (["stream_step/scan_batch/ext_keys"] if k > 31 else [])
+    assert "wide_ext_launches" not in p.metrics.tally
+
+
 def _count_reads(monkeypatch):
     """Counts every tensor-to-host conversion (Tensor.numpy, item,
     tolist, __int__, __bool__, __float__, __index__)."""
