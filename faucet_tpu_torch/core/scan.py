@@ -75,32 +75,37 @@ def spool_flush(junctions: T.Table, spool: JSpool, cfg
                 ) -> Tuple[T.Table, JSpool]:
     """Drain the spool into the junction table: one key sort groups
     duplicate keys, cov/dist one-hots combine per key, and only unique
-    representatives go through table upsert rounds."""
-    S = spool.khi.shape[0]
-    valid = torch.arange(S, device=spool.khi.device) < spool.cnt
-    khi_m = torch.where(valid, u2.from_i32(spool.khi), EMPTY)
-    klo_m = torch.where(valid, u2.from_i32(spool.klo), EMPTY)
-    skey, sidx = torch.sort(u2.sort_key(khi_m, klo_m), stable=True)
-    skhi, sklo = khi_m[sidx], klo_m[sidx]
-    ssf, sdd = u2.from_i32(spool.sf)[sidx], u2.from_i32(spool.dd)[sidx]
-    cov8, dist8 = cov_dist8(ssf & 7, (ssf >> 3) & 7, sdd & 0xFFFF,
-                            sdd >> 16, (ssf >> 6) & 1 > 0,
-                            (ssf >> 7) & 1 > 0)
-    head = torch.ones((S,), dtype=torch.bool, device=skey.device)
-    head[1:] = skey[1:] != skey[:-1]
-    seg = torch.cumsum(head, 0) - 1
-    cov8c = T._segment(cov8, seg, S, "add")
-    dist8c = T._segment(dist8, seg, S, "max")
-    rep = head & (skhi != EMPTY)
-    K = min(S, cfg.scan_update_cap)
+    representatives go through table upsert rounds. A span
+    `spool_flush` under its caller's (`flush` at a phase end,
+    `spool_append` when a batch would not fit), counted in
+    `spool_flushes`."""
+    with M.span("spool_flush"):
+        M.count("spool_flushes")
+        S = spool.khi.shape[0]
+        valid = torch.arange(S, device=spool.khi.device) < spool.cnt
+        khi_m = torch.where(valid, u2.from_i32(spool.khi), EMPTY)
+        klo_m = torch.where(valid, u2.from_i32(spool.klo), EMPTY)
+        skey, sidx = torch.sort(u2.sort_key(khi_m, klo_m), stable=True)
+        skhi, sklo = khi_m[sidx], klo_m[sidx]
+        ssf, sdd = u2.from_i32(spool.sf)[sidx], u2.from_i32(spool.dd)[sidx]
+        cov8, dist8 = cov_dist8(ssf & 7, (ssf >> 3) & 7, sdd & 0xFFFF,
+                                sdd >> 16, (ssf >> 6) & 1 > 0,
+                                (ssf >> 7) & 1 > 0)
+        head = torch.ones((S,), dtype=torch.bool, device=skey.device)
+        head[1:] = skey[1:] != skey[:-1]
+        seg = torch.cumsum(head, 0) - 1
+        cov8c = T._segment(cov8, seg, S, "add")
+        dist8c = T._segment(dist8, seg, S, "max")
+        rep = head & (skhi != EMPTY)
+        K = min(S, cfg.scan_update_cap)
 
-    def fn(tbl, cm, ps):
-        return T.upsert(tbl, ps[0], ps[1], (ps[2], ps[3]), cm,
-                        modes=("add", "max"), shard_bits=cfg.shard_bits)
+        def fn(tbl, cm, ps):
+            return T.upsert(tbl, ps[0], ps[1], (ps[2], ps[3]), cm,
+                            modes=("add", "max"), shard_bits=cfg.shard_bits)
 
-    junctions, _ = upsert_rounds(rep, K, (skhi, sklo, cov8c, dist8c), fn,
-                                 junctions)
-    return junctions, spool._replace(cnt=0)
+        junctions, _ = upsert_rounds(rep, K, (skhi, sklo, cov8c, dist8c), fn,
+                                     junctions)
+        return junctions, spool._replace(cnt=0)
 
 
 def _spool_append(junctions: T.Table, spool: JSpool, u: "ScanUpdates",
@@ -290,7 +295,8 @@ def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
     wmode = ("max",) * len(wcol)
 
     if jspool is not None and not wcol:
-        junctions, jspool = _spool_append(junctions, jspool, u, cfg)
+        with M.span("spool_append"):
+            junctions, jspool = _spool_append(junctions, jspool, u, cfg)
     else:
         def jfn(tbl, cm, ps):
             jhi, jlo, exs, ens, exd, end_, exo, eno = ps[:8]
@@ -365,12 +371,13 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
     en_slot = entry_slot(cisf, torch.clamp(pb, max=3).to(torch.int64))
 
     if nodes:
-        rk_hi, rk_lo, lk_hi, lk_lo = ND.probe_keys(key_hi, key_lo, other_hi,
-                                                   other_lo, k)
-        # one probe call for both branch queries: one kernel launch
-        qhi = torch.stack([rk_hi, lk_hi])
-        qlo = torch.stack([rk_lo, lk_lo])
-        branch = node_solid_fn(qhi, qlo, solid.expand(2, B, P))
+        with M.span("node_probe"):
+            rk_hi, rk_lo, lk_hi, lk_lo = ND.probe_keys(key_hi, key_lo,
+                                                       other_hi, other_lo, k)
+            # one probe call for both branch queries: one kernel launch
+            qhi = torch.stack([rk_hi, lk_hi])
+            qlo = torch.stack([rk_lo, lk_lo])
+            branch = node_solid_fn(qhi, qlo, solid.expand(2, B, P))
         is_junc = solid & (branch[0] | branch[1])
     else:
         # The read itself answers 2 of the 8 extension probes: the slot the
@@ -506,12 +513,14 @@ def load_batch_nodes_s(cascade: BL.Cascade, node_cascade: BL.Cascade,
         view.valid.reshape(-1), cfg)
     other_hi, other_lo = u2.select(view.canon_is_fwd, view.rc_hi,
                                    view.rc_lo, view.fwd_hi, view.fwd_lo)
-    pk_hi, pk_lo, sk_hi, sk_lo = ND.endpoint_keys(
-        view.canon_hi, view.canon_lo, other_hi, other_lo, cfg.size_kmer)
-    nhi = torch.cat([pk_hi.reshape(-1), sk_hi.reshape(-1)])
-    nlo = torch.cat([pk_lo.reshape(-1), sk_lo.reshape(-1)])
-    node_cascade = BL.cascade_insert(node_cascade, nhi, nlo,
-                                     torch.cat([new_b, new_b]),
-                                     cfg.node_view(), sparse=True)
+    with M.span("node_insert"):
+        pk_hi, pk_lo, sk_hi, sk_lo = ND.endpoint_keys(
+            view.canon_hi, view.canon_lo, other_hi, other_lo, cfg.size_kmer)
+        nhi = torch.cat([pk_hi.reshape(-1), sk_hi.reshape(-1)])
+        nlo = torch.cat([pk_lo.reshape(-1), sk_lo.reshape(-1)])
+        M.count("node_keys", nhi.shape[0])
+        node_cascade = BL.cascade_insert(node_cascade, nhi, nlo,
+                                         torch.cat([new_b, new_b]),
+                                         cfg.node_view(), sparse=True)
     return (cascade, node_cascade, new_b.sum(),
             solid.reshape(view.canon_hi.shape))

@@ -4,7 +4,9 @@ Spans nest per thread and time their paths; they enter torch.profiler's
 record_function only while the profiler records; every blocking read of a
 device value goes through Metrics.fetch, one `sync` span and one
 `host_syncs` each; `add` sums device tensors without reading them. The
-phase timers keep their names and the build's spans account for it.
+phase timers keep their names and the build's spans account for it. The
+narrow stream spans its branch-node cascade and its junction spool; the
+wide one spans neither.
 """
 import json
 import threading
@@ -186,6 +188,86 @@ def test_the_wide_scan_spans_its_extension_keys(reads, k):
     spans = [x for x in p.metrics.timers if x.endswith("ext_keys")]
     assert spans == (["stream_step/scan_batch/ext_keys"] if k > 31 else [])
     assert "wide_ext_launches" not in p.metrics.tally
+
+
+# the spans of the branch-node cascade and the junction spool (narrow
+# codes only)
+NODE_SPOOL = ("node_insert", "node_probe", "spool_append", "spool_flush")
+
+
+@pytest.mark.parametrize("k", [31, 55])
+def test_the_narrow_stream_spans_its_node_cascade_and_spool(reads, k):
+    """A profiled k = 31 stream step holds node_insert in its load half
+    and node_probe and spool_append in its scan half, and tallies
+    node_keys: both endpoint keys of every window, the lanes handed to the
+    sparse D -> E insert. A k = 55 step (wide codes: ext8, no spool)
+    holds none of the four spans and neither tally."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _cfg(k)
+    p = Pipeline(cfg, device="cpu")
+    batches = _batches(reads, cfg)
+    p.stream_step(*batches[0])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        p.stream_step(*batches[1])
+    ev = _events(prof)
+    steps = [e for e in ev if e[2] == "faucet.stream_step"]
+    mine = [e for e in ev if e[2].split("/")[-1] in NODE_SPOOL]
+    spans = {x for x in p.metrics.timers if x.split("/")[-1] in NODE_SPOOL}
+    tally = p.metrics.tally
+    if k > 31:
+        assert not mine and not spans
+        assert not {"node_keys", "spool_flushes"} & set(tally)
+        return
+    want = {"stream_step/load/node_insert",
+            "stream_step/scan_batch/node_probe",
+            "stream_step/scan_batch/spool_append"}
+    assert {n[len("faucet."):] for _, _, n in mine} == spans == want
+    assert len(mine) == 3 and len(steps) == 1
+    s0, s1, _ = steps[0]
+    assert all(s0 <= a and b <= s1 for a, b, _ in mine)
+    windows = cfg.batch_reads * cfg.positions_per_read
+    assert tally["node_keys"] == 2 * 2 * windows
+    assert "spool_flushes" not in tally
+
+
+def _block_reads():
+    """Reads of a genome strung from four random 25 bp blocks in random
+    order: every block end is a branching node, so junction windows are
+    dense and fill a small spool within a few dozen batches."""
+    rng = np.random.default_rng(5)
+    blocks = ["".join(rng.choice(list("ACGT"), 25)) for _ in range(4)]
+    genome = "".join(blocks[i] for i in rng.integers(0, 4, 120))
+    return simulate.shred(rng, genome, coverage=20, read_len=60,
+                          err_rate=0.0, circular=True)
+
+
+def test_a_flush_forced_mid_stream_spans_under_spool_append():
+    """Two-read batches of 30 windows and a 16-lane update cap make
+    Config's spool 128 lanes, flushed when a batch's lanes would pass 112
+    (core/scan.py make_jspool, _spool_append). Junction-dense reads force
+    flushes mid-stream: each is a spool_flush span under spool_append,
+    counted in spool_flushes; the phase-end flush is one under flush."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config(size_kmer=31, max_read_length=60, batch_reads=2,
+                 estimated_kmers=1 << 12, singletons=1 << 12,
+                 junction_capacity=1 << 10, sink_capacity=1 << 12,
+                 fp_rate=0.01, scan_update_cap=16)
+    assert SC.make_jspool(cfg).khi.shape[0] == 128
+    p = Pipeline(cfg, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for bases, lens in _batches(_block_reads(), cfg)[:80]:
+            p.stream_step(bases, lens)
+    mid = p.metrics.tally["spool_flushes"]
+    flushes = [e for e in _events(prof) if e[2].endswith("/spool_flush")]
+    assert mid >= 1 and len(flushes) == mid
+    assert {n for _, _, n in flushes} \
+        == {"faucet.stream_step/scan_batch/spool_append/spool_flush"}
+    assert not any(x.startswith("flush") for x in p.metrics.timers)
+    p.flush_junctions()
+    assert p.metrics.tally["spool_flushes"] == mid + 1
+    assert "flush/spool_flush" in p.metrics.timers
 
 
 def _count_reads(monkeypatch):
