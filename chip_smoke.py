@@ -23,7 +23,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               reuse), with torch.nonzero_static beside it as a yardstick;
               B1, B2-B4 and B7 also at the k = 55 path's shapes; B6 also
               on unaligned, short and past-the-end inputs; the wide
-              scan's extension keys (csrc/wide_ext.cu) at 8,192 x 46
+              scan's extension keys (csrc/wide_ext.cu) at 8,192 x 46; the
+              hash table's probe rounds (csrc/table_upsert.cu) at a
+              k = 55 stream batch's sink and junction calls
   3b entries  the scatter-OR kernels' entry points (no caller on the main
               path), core/bloom.bloom_insert and scatter_or_bits: timed,
               then driven and counted, CUDA == CPU; they use only the API
@@ -87,8 +89,9 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
   9 counters  every main-path kernel launched in each of the scale,
               paired, wide, dualk, stream and dist paths (counts set to 0 just
               before each path and read just after it); phase 4's exact
-              run at k = 21 on CUDA launches the compaction and no probe
-              or cascade kernel; device launches of one
+              run at k = 21 on CUDA launches the compaction and the
+              table upsert and no probe or cascade kernel; device
+              launches of one
               membership query, one compaction and one bloom_insert (1
               each) and one cascade insert (at most 3), from
               torch.profiler after the timed phases
@@ -153,13 +156,15 @@ def note(msg: str):
           file=sys.stderr, flush=True)
 
 
-def _wide_ext():
-    """kernels/wide_ext.py, or None in a tree without it (--root)."""
+def _kernel_module(name: str):
+    """faucet_tpu_torch.kernels.<name>, or None in a tree without it
+    (--root)."""
+    import importlib
+
     try:
-        from faucet_tpu_torch.kernels import wide_ext as KW
+        return importlib.import_module(f"faucet_tpu_torch.kernels.{name}")
     except ImportError:
         return None
-    return KW
 
 
 def zero_counts():
@@ -169,9 +174,9 @@ def zero_counts():
     from faucet_tpu_torch.kernels import probe as KP
 
     KP.launches = KC.launches = KCP.launches = 0
-    KW = _wide_ext()
-    if KW is not None:
-        KW.launches = 0
+    for mod in map(_kernel_module, ("wide_ext", "upsert")):
+        if mod is not None:
+            mod.launches = 0
     variants = getattr(KC, "variant_launches", {})
     variants.update(dict.fromkeys(variants, 0))
 
@@ -190,8 +195,12 @@ def read_counts() -> dict:
     from faucet_tpu_torch.kernels import compact as KCP
     from faucet_tpu_torch.kernels import probe as KP
 
-    return {"probe": KP.launches, "cascade": KC.launches,
-            "compact": KCP.launches}
+    counts = {"probe": KP.launches, "cascade": KC.launches,
+              "compact": KCP.launches}
+    KU = _kernel_module("upsert")
+    if KU is not None:
+        counts["upsert"] = KU.launches
+    return counts
 
 
 def phase(name):
@@ -475,6 +484,7 @@ def run_kernels():
     res.update(check_scatter(gen, dev, lib))
     res.update(check_compact(gen, dev, lib))
     res.update(check_wide_ext(gen, dev, lib))
+    res.update(check_upsert(dev))
     report["kernels"] = res
     return res
 
@@ -903,6 +913,130 @@ def check_wide_ext(gen, dev, lib, k: int = 55, B: int = 8192, L: int = 100):
            **bound(192 * n, WIDE_EXT_OPS * n)}
     log_kernel(f"slot_ext_keys k = {k} {list(canon.shape[1:])}", rec)
     return {f"wide_ext_{B}x{n // B}": rec}
+
+
+# the k = 55 stream cell's tables (benchmark/sizing.py program_kwargs):
+# (name, capacity, value arrays (trailing shape, dtype, mode), keys put in
+# before the timed calls, about a dataset's end)
+UPSERT_CASES = (
+    ("sink", 1 << 24, (((), "int32", "add"), ((4,), "int64", "max")),
+     2_000_000),
+    ("junction", 1 << 20, (((8,), "int32", "add"), ((8,), "int32", "max"),
+                           ((4,), "int64", "max")), 150_000),
+)
+
+
+def check_upsert(dev, n: int = 8192, reps: int = 20):
+    """The hash table's probe rounds (kernels/upsert.py probe_rounds,
+    csrc/table_upsert.cu, no Pallas counterpart) against the torch rounds
+    (core/table.py probe_rounds_plain) at a k = 55 stream batch's sink and
+    junction calls: 8,192 lanes (the scan's K), half of them keys the
+    table holds, into the cell's tables filled to about a dataset's end.
+    Bit-identical rows [:cap], count and dropped; the wrapper, the kernel
+    alone and the plain rounds timed on fresh batches; the bound from the
+    bytes the call needs at the rounds the plain version ran. Wrapper
+    and kernel alone are one call: the kernel alone is the wrapper timed
+    behind a device sleep, which hides its host part."""
+    import torch
+
+    KU = _kernel_module("upsert")
+    if KU is None:
+        log("kernels/upsert.py: not in this tree")
+        return {}
+    from faucet_tpu_torch import metrics as TM
+    from faucet_tpu_torch.core import table as TT
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    res = {}
+    for name, cap, specs, fill in UPSERT_CASES:
+        specs = [(s, getattr(torch, d), m) for s, d, m in specs]
+        modes = tuple(m for _, _, m in specs)
+        pool = 4 * fill
+        phi = torch.randint(0, 1 << 30, (pool,), generator=g, device=dev)
+        plo = torch.randint(0, 1 << 32, (pool,), generator=g, device=dev)
+
+        def batch(m, lo_key=0, hi_key=pool):
+            pick = torch.randint(lo_key, hi_key, (m,), generator=g,
+                                 device=dev)
+            vals = tuple(torch.randint(0, 1 << 20, (m,) + sh, generator=g,
+                                       device=dev, dtype=dt)
+                         for sh, dt, _ in specs)
+            mask = torch.rand((m,), generator=g, device=dev) < 0.95
+            return TT._dedupe(phi[pick], plo[pick], vals, mask, modes)
+
+        tbl = TT.make(cap, tuple((sh, dt) for sh, dt, _ in specs),
+                      device=dev)
+        for lo_key in range(0, fill, 1 << 16):
+            sk = batch(1 << 16, lo_key, min(lo_key + (1 << 16), fill))
+            tbl = TT.probe_rounds_plain(tbl, *sk, modes)
+        # half the batch's keys held by the table, half new
+        fresh = lambda: batch(n, fill // 2, fill + fill // 2)
+        clone = lambda t: t._replace(
+            keys_hi=t.keys_hi.clone(), keys_lo=t.keys_lo.clone(),
+            vals=tuple(v.clone() for v in t.vals))
+        skhi, sklo, cvals, rep = fresh()
+        pending = []
+        orig = TT._rounds
+
+        def rounds(step, p, max_rounds):
+            def counted(r, p):
+                pending.append(int(p.sum()))
+                return step(r, p)
+            return orig(counted, p, max_rounds)
+
+        TT._rounds = rounds
+        m = TM.Metrics()
+        try:
+            with m.span("plain"):
+                want = TT.probe_rounds_plain(clone(tbl), skhi, sklo, cvals,
+                                             rep, modes)
+        finally:
+            TT._rounds = orig
+        before = KU.launches
+        got = KU.probe_rounds(clone(tbl), skhi, sklo, cvals, rep.clone(),
+                              modes)
+        torch.cuda.synchronize()
+        launches = KU.launches - before
+        err = 0
+        for x, y in zip((got.keys_hi, got.keys_lo) + got.vals,
+                        (want.keys_hi, want.keys_lo) + want.vals):
+            err = max(err, int((x[:cap].to(torch.int64)
+                                - y[:cap].to(torch.int64)).abs().max()))
+        err = max(err, abs(int(got.count) - int(want.count)),
+                  abs(int(got.dropped) - int(want.dropped)))
+        if err or launches != 1:
+            raise AssertionError(f"upsert {name}: kernel != plain ({err}) "
+                                 f"or {launches} launches")
+        won = int(want.count) - int(tbl.count)
+        live = int(rep.sum())
+        row = sum(int(torch.tensor([], dtype=dt).element_size())
+                  * max(1, int(np.prod(sh))) for sh, dt, _ in specs)
+        # the batch read once (keys, mask, rows), each round's pending
+        # lanes' key words, the winners' claim (store, max, read) and key
+        # writes, and each written row read and written once
+        nbytes = (n * (16 + 1 + row) + 8 * sum(pending) + won * (24 + 8)
+                  + 2 * row * (live - int(want.dropped)))
+        wrapped = lambda a: KU.probe_rounds(tbl, *a, modes)
+        plain = lambda a: TT.probe_rounds_plain(tbl, *a, modes)
+        setup = lambda: (fresh(),)
+        rec = {"lanes": n, "live": live, "capacity": cap,
+               "held": int(tbl.count), "won": won,
+               "rounds": sum(1 for x in pending if x),
+               "pending_by_round": pending,
+               "plain_host_syncs": m.tally.get("host_syncs", 0),
+               "launches_per_call": launches,
+               "ms": cuda_ms(wrapped, reps, setup=setup),
+               # the wrapper launches nothing else: behind the sleep its
+               # host part is hidden, and the events time the kernel
+               "device_ms": cuda_ms(wrapped, reps, setup=setup,
+                                    device_only=True),
+               "plain_ms": cuda_ms(plain, reps, setup=setup),
+               "library_ms": None, "max_abs_err": err, **bound(nbytes)}
+        log_kernel(f"upsert {name} cap 2**{cap.bit_length() - 1} "
+                   f"{n} lanes ({rec['rounds']} rounds)", rec)
+        res[f"upsert_{name}_{n}"] = rec
+    return res
 
 
 @phase("entries")
@@ -1433,7 +1567,7 @@ def run_wide(profile: bool = False):
     ms_step = 1e3 * wst["seconds"] / max(wst["steps"], 1)
     # the extension keys: one launch a scan batch (zero_counts ran just
     # before this phase)
-    KW = _wide_ext()
+    KW = _kernel_module("wide_ext")
     wide_ext = None if KW is None else KW.launches
     log(f"wide_ext launches {wide_ext}, scan batches {n_batches}")
     if wide_ext not in (None, n_batches):
@@ -2669,7 +2803,8 @@ def main(argv=None) -> int:
         launch_census()
         for path, counts in by_path.items():
             # exact mode takes no Bloom kernel: its cascade is two tables
-            want_on = ({"compact"} if path == "exact" else set(counts))
+            want_on = ({"compact", "upsert"} & set(counts)
+                       if path == "exact" else set(counts))
             if any(bool(n) != (name in want_on)
                    for name, n in counts.items()):
                 raise AssertionError(f"{path}: launches {counts}, expected "

@@ -13,9 +13,11 @@ torch differences, each handled here:
   that absorbs the writes of lanes that write nothing. Real targets stay
   unique (one winner per slot, matches never collide with claims), as in
   the reference, so index_put_ stays deterministic where it matters;
-- the reference's device `while_loop` becomes a host loop that checks
-  `pending.any()` every ROUND_CHUNK probe rounds (extra rounds are no-ops
-  on settled lanes, so results are identical);
+- the reference's device `while_loop` becomes, on CUDA tensors, one
+  launch of a kernel that runs every probe round of the call
+  (kernels/upsert.py, csrc/table_upsert.cu), and on CPU tensors a host
+  loop that checks `pending.any()` every ROUND_CHUNK probe rounds (extra
+  rounds are no-ops on settled lanes, so results are identical);
 - upserts update the table's tensors in place (the reference's jit
   donates them); count/dropped are 0-d int64 tensors.
 """
@@ -28,6 +30,7 @@ import torch
 from faucet_tpu_torch import metrics as M
 from faucet_tpu_torch.core import u32x2 as u2
 from faucet_tpu_torch.core.hashing import hash_pair
+from faucet_tpu_torch.kernels import upsert as KU
 
 EMPTY = 0xFFFFFFFF  # keys_hi sentinel: valid k<=31 codes have hi < 2^30
 EMPTY_I32 = -1      # the same bits as stored
@@ -120,15 +123,28 @@ def upsert(tbl: Table, khi, klo, vals: Tuple, mask, modes: Tuple[str, ...],
     """Insert-or-combine a batch of keyed values, in place.
 
     khi/klo: int64[N] uint32 words; vals: tuple of [N, ...] in the
-    table's dtypes; mask: bool[N]; modes: per-value 'add' | 'max'."""
+    table's dtypes; mask: bool[N]; modes: per-value 'add' | 'max'. The
+    batch is sorted and combined here; its probe rounds are one kernel
+    launch on CUDA tensors, probe_rounds_plain on CPU ones
+    (kernels/upsert.py). A span `upsert`."""
+    with M.span("upsert"):
+        skhi, sklo, cvals, rep = _dedupe(khi, klo, vals, mask, modes)
+        return KU.probe_rounds(tbl, skhi, sklo, cvals, rep, modes,
+                               max_rounds, shard_bits)
+
+
+def probe_rounds_plain(tbl: Table, skhi, sklo, cvals, rep, modes,
+                       max_rounds: int = 128, shard_bits: int = 0) -> Table:
+    """The probe rounds in torch: _dedupe's sorted keys, combined values
+    and representative mask into tbl, the highest ticket winning each
+    empty slot. Each round a span `probe_round` (see _rounds)."""
     cap = tbl.capacity
-    n = khi.shape[0]
-    skhi, sklo, cvals, rep = _dedupe(khi, klo, vals, mask, modes)
+    n = skhi.shape[0]
     h1, h2 = hash_pair(skhi, sklo)
     skhi32, sklo32 = u2.to_i32(skhi), u2.to_i32(sklo)
-    ticket = torch.arange(n, device=khi.device)
-    claim = torch.full((cap + 1,), -1, dtype=torch.int64, device=khi.device)
-    n_new = torch.zeros((), dtype=torch.int64, device=khi.device)
+    ticket = torch.arange(n, device=skhi.device)
+    claim = torch.full((cap + 1,), -1, dtype=torch.int64, device=skhi.device)
+    n_new = torch.zeros((), dtype=torch.int64, device=skhi.device)
 
     def step(r, pending):
         nonlocal n_new

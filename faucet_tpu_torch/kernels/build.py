@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("probe.cu", "cascade.cu", "bloom_scatter.cu", "compact.cu",
-           "wide_ext.cu")
+           "wide_ext.cu", "table_upsert.cu")
 HEADERS = ("bloom_bits.cuh", "hash.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -112,6 +112,10 @@ def library() -> ctypes.CDLL:
         lib.ft_mask_indices.argtypes = [p, i64, p, i64, p, p, i64, i32, p]
         lib.ft_wide_ext_keys.restype = i32
         lib.ft_wide_ext_keys.argtypes = [p, p, i64, i32, p, p, p]
+        lib.ft_table_upsert.restype = i32
+        lib.ft_table_upsert.argtypes = [p, p, i64, p, p, p, i64, p, p, p,
+                                        p, p, i32, i32, i32,
+                                        p, p, i32, p, p, i32, p, p, i32, p]
         lib.ft_error_string.restype = ctypes.c_char_p
         lib.ft_error_string.argtypes = [i32]
         _lib = lib

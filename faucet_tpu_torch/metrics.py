@@ -10,8 +10,11 @@ and adds the port's own records:
   `counters` is read (by `emit`), so counting never waits on the device.
 - `tally`: how the port drove the device, which the reference has no
   counterpart of: `host_syncs` (blocking reads, one per `fetch`),
-  `table_probe_rounds`, `walk_rounds`, `walk_steps`, `node_keys` (lanes
-  handed to the branch-node cascade's insert) and `spool_flushes`.
+  `table_probe_rounds` (probe rounds issued from the host: the CPU's
+  torch rounds; on the card a table upsert is one launch, counted in
+  `upsert_launches`), `walk_rounds`, `walk_steps`, `node_keys` (lanes
+  handed to the branch-node cascade's insert), `spool_flushes` and the
+  kernels' launches (`wide_ext_launches`, `upsert_launches`).
 - `timers`: seconds per span path. `with m.span("scan"):` times a stretch
   of host code; spans nest on a per-thread stack and the timer key is the
   path of the enclosing spans' names joined by "/" (`build/pass1/walk/

@@ -1,5 +1,5 @@
 """faucet_tpu_torch kernel modules (probe, cascade, bloom_scatter, compact,
-wide_ext) vs the reference.
+wide_ext, upsert) vs the reference.
 
 On the CPU the wrappers take their plain torch versions; those are held
 to the reference's CPU formulation (core/bloom.py) exactly, and to the
@@ -26,6 +26,7 @@ from faucet_tpu_torch.kernels import bloom_scatter as KS
 from faucet_tpu_torch.kernels import cascade as KC
 from faucet_tpu_torch.kernels import compact as KCP
 from faucet_tpu_torch.kernels import probe as KP
+from faucet_tpu_torch.kernels import upsert as KU
 from faucet_tpu_torch.kernels import wide_ext as KW
 
 # the suite runs in several worker processes on few cores: one torch
@@ -336,6 +337,104 @@ def test_wide_ext_takes_plain_version_on_cpu_and_checks_arguments(rng):
         with pytest.raises(ValueError):
             KW.slot_ext_keys(*args)
     assert KW.launches == before
+
+
+# value arrays of the port's tables: (trailing shape, dtype, mode) of the
+# sink (coverage), the junction (cov8, dist8) and the wide code words
+SINK_VALS = (((), torch.int32, "add"),)
+JUNCTION_VALS = (((8,), torch.int32, "add"), ((8,), torch.int32, "max"))
+WORD_VALS = (((4,), torch.int64, "max"),)
+
+
+def _upsert_case(rng, cap, n, specs, n_keys=None, fill=0, device="cpu"):
+    """A table of capacity cap with `fill` keys already upserted, and a
+    batch of n lanes (~90% live) over n_keys distinct keys (duplicates
+    when n_keys < n), some of them the table's own; values per spec."""
+    from faucet_tpu_torch.core import table as TT
+
+    n_keys = n_keys or n
+    hi = rng.integers(0, 1 << 30, n_keys + fill).astype(np.uint32)
+    lo = rng.integers(0, 1 << 32, n_keys + fill,
+                      dtype=np.uint64).astype(np.uint32)
+
+    def batch(pick, m):
+        vals = tuple(torch.from_numpy(rng.integers(
+            0, 1 << 20, (m,) + shape).astype(np.int64)).to(dt)
+            for shape, dt, _ in specs)
+        return (TU.u32(hi[pick]).to(device), TU.u32(lo[pick]).to(device),
+                tuple(v.to(device) for v in vals),
+                torch.from_numpy(rng.random(m) < 0.9).to(device))
+
+    tbl = TT.make(cap, tuple((s, d) for s, d, _ in specs), device=device)
+    modes = tuple(m for _, _, m in specs)
+    if fill:
+        khi, klo, vals, mask = batch(np.arange(fill), fill)
+        tbl = TT.upsert(tbl, khi, klo, vals, mask, modes)
+    # the batch draws from the table's keys and new ones alike
+    return tbl, batch(rng.integers(0, n_keys + fill, n), n), modes
+
+
+def _clone_table(tbl):
+    return tbl._replace(keys_hi=tbl.keys_hi.clone(),
+                        keys_lo=tbl.keys_lo.clone(),
+                        vals=tuple(v.clone() for v in tbl.vals))
+
+
+def _tables_equal(a, b):
+    """Rows [:cap] of every key and value array, count and dropped."""
+    cap = a.capacity
+    for x, y in zip((a.keys_hi, a.keys_lo) + a.vals,
+                    (b.keys_hi, b.keys_lo) + b.vals):
+        assert x.dtype == y.dtype and torch.equal(x[:cap], y[:cap])
+    assert int(a.count) == int(b.count) and int(a.dropped) == int(b.dropped)
+
+
+def test_upsert_takes_plain_version_on_cpu_and_checks_arguments(rng):
+    """kernels/upsert.probe_rounds on CPU tensors is the torch rounds
+    (core/table.py probe_rounds_plain), counting no launch, and refuses
+    what the kernel does not take; core/table.py upsert runs in a span
+    `upsert` with its probe_round spans inside."""
+    from faucet_tpu_torch import metrics as TM
+    from faucet_tpu_torch.core import table as TT
+
+    tbl, (khi, klo, vals, mask), modes = _upsert_case(
+        rng, 1 << 10, 600, JUNCTION_VALS + WORD_VALS, n_keys=300, fill=200)
+    skhi, sklo, cvals, rep = TT._dedupe(khi, klo, vals, mask, modes)
+    before = KU.launches
+    got = KU.probe_rounds(_clone_table(tbl), skhi, sklo, cvals, rep, modes)
+    want = TT.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
+                                 modes)
+    assert KU.launches == before
+    _tables_equal(got, want)
+    assert int(got.count) > int(tbl.count)
+    c0, c1, c2 = cvals
+    t3 = tbl._replace(vals=tbl.vals[:1] + (tbl.vals[0][:, :3].contiguous(),)
+                      + tbl.vals[2:])
+    bad = [
+        (tbl, skhi, sklo, (c0, c1, c2.to(torch.int32)), rep, modes),  # dtype
+        (tbl, skhi.to(torch.int32), sklo, cvals, rep, modes),
+        (tbl, skhi, sklo, cvals, rep.to(torch.uint8), modes),
+        (t3, skhi, sklo, (c0, c1[:, :3].contiguous(), c2), rep, modes),
+        (tbl, skhi, sklo, cvals, rep, ("add", "min", "max")),     # mode
+        (tbl, skhi, sklo, (c0, c1.t().contiguous().t(), c2), rep,
+         modes),                                                  # layout
+        (tbl, skhi, sklo, (c0, c1.to("meta"), c2), rep, modes),   # device
+        (tbl, skhi, sklo, cvals[:2], rep, modes),                 # count
+        (tbl._replace(vals=tbl.vals + tbl.vals[:1]), skhi, sklo,
+         cvals + cvals[:1], rep, modes + ("add",)),               # four
+        (tbl, skhi[:-1], sklo, cvals, rep, modes),                # shape
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            KU.probe_rounds(*args)
+    assert KU.launches == before
+    m = TM.Metrics()
+    with m.span("outer"):
+        TT.upsert(_clone_table(tbl), khi, klo, vals, mask, modes)
+    assert "outer/upsert" in m.timers
+    assert "outer/upsert/probe_round" in m.timers
+    assert m.tally["table_probe_rounds"] > 0
+    assert "upsert_launches" not in m.tally
 
 
 def _filter(rng, W):
@@ -829,6 +928,125 @@ def test_wide_pipeline_cpu_equals_cuda(cuda):
             np.testing.assert_array_equal(x[f], y[f])
         assert len(x["vals"]) == len(y["vals"]) and x["vals"][-1].dtype == \
             np.uint32
+        for u, v in zip(x["vals"], y["vals"]):
+            np.testing.assert_array_equal(u, v)
+
+
+# (name, capacity, lanes, value specs, distinct keys, keys already in
+# the table, shard_bits, max_rounds)
+UPSERT_CASES = (
+    ("sink", 1 << 16, 8192, SINK_VALS, None, 0, 0, 128),
+    ("junction", 1 << 15, 8192, JUNCTION_VALS, None, 0, 0, 128),
+    ("wide", 1 << 15, 8192, JUNCTION_VALS + WORD_VALS, None, 0, 0, 128),
+    ("shard_bits_2", 1 << 15, 8192, SINK_VALS + WORD_VALS, None, 0, 2, 128),
+    ("prefilled", 1 << 14, 8192, JUNCTION_VALS, 6000, 6000, 0, 128),
+    ("duplicates", 1 << 14, 8192, JUNCTION_VALS + WORD_VALS, 500, 0, 0, 128),
+    ("overflow", 1 << 8, 600, SINK_VALS, None, 200, 0, 4),
+    ("empty_batch", 1 << 10, 0, JUNCTION_VALS, None, 300, 0, 128),
+    ("one_lane", 1 << 10, 1, SINK_VALS, None, 300, 0, 128),
+    ("no_values", 1 << 14, 8192, (), 5000, 2000, 0, 128),
+    ("grid", 1 << 21, 573_440, SINK_VALS + WORD_VALS, 400_000, 200_000, 0,
+     128),
+    ("grid_shards", 1 << 20, 65_536, JUNCTION_VALS, 30_000, 20_000, 2, 128),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", UPSERT_CASES, ids=lambda c: c[0])
+def test_upsert_kernel_on_card(cuda, case):
+    """csrc/table_upsert.cu == the torch rounds on the card, bit for bit:
+    rows [:cap] of the keys and every value array, count and dropped; one
+    launch a call. Narrow sink, junction, wide words, sharded slots, a
+    pre-filled table (matches and claims in one round), heavy duplicates,
+    probe overflow (dropped > 0), 0 and 1 lanes, no values, one block
+    (8,192 lanes) and the cooperative grid (573,440 and 65,536)."""
+    from faucet_tpu_torch.core import table as TT
+
+    name, cap, n, specs, n_keys, fill, sb, rounds = case
+    rng = np.random.default_rng(1500 + len(name) + n)
+    tbl, (khi, klo, vals, mask), modes = _upsert_case(
+        rng, cap, n, specs, n_keys=n_keys, fill=fill, device=cuda)
+    skhi, sklo, cvals, rep = TT._dedupe(khi, klo, vals, mask, modes)
+    want = TT.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
+                                 modes, rounds, sb)
+    before = KU.launches
+    got = KU.probe_rounds(_clone_table(tbl), skhi, sklo, cvals, rep.clone(),
+                          modes, rounds, sb)
+    torch.cuda.synchronize()
+    assert KU.launches == before + 1
+    _tables_equal(got, want)
+    assert int(want.count) > int(tbl.count) or n < 600
+    assert (int(want.dropped) > int(tbl.dropped)) == (name == "overflow")
+    # twice over: the second call only matches (nothing new, values grow)
+    again = KU.probe_rounds(got, skhi, sklo, cvals, rep.clone(), modes,
+                            rounds, sb)
+    want2 = TT.probe_rounds_plain(want, skhi, sklo, cvals, rep, modes,
+                                  rounds, sb)
+    torch.cuda.synchronize()
+    _tables_equal(again, want2)
+
+
+@pytest.mark.cuda
+def test_upsert_one_launch_and_no_rounds_on_card(cuda):
+    """On the card core/table.py upsert is one kernel launch, counted in
+    upsert_launches, inside its span `upsert`: no probe_round span, no
+    host read."""
+    from faucet_tpu_torch import metrics as TM
+    from faucet_tpu_torch.core import table as TT
+
+    rng = np.random.default_rng(15)
+    tbl, (khi, klo, vals, mask), modes = _upsert_case(
+        rng, 1 << 14, 8192, JUNCTION_VALS, device=cuda)
+    m = TM.Metrics()
+    before = KU.launches
+    with m.span("outer"):
+        for _ in range(3):
+            tbl = TT.upsert(tbl, khi, klo, vals, mask, modes)
+    torch.cuda.synchronize()
+    assert KU.launches - before == m.tally["upsert_launches"] == 3
+    assert "outer/upsert" in m.timers
+    assert not any(k.endswith("probe_round") for k in m.timers)
+    assert "table_probe_rounds" not in m.tally
+    assert "host_syncs" not in m.tally
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 55])
+def test_stream_step_cpu_equals_cuda(cuda, k):
+    """Pipeline.stream_step over whole batches on the CPU (torch rounds)
+    and on the card (the upsert kernel) leaves the same junction and sink
+    tables; at k = 31 the junction spool's flush too."""
+    from faucet_tpu_torch import simulate
+    from faucet_tpu_torch.pipeline import Pipeline, batch_iter
+
+    rng = np.random.default_rng(1531 + k)
+    genome = simulate.genome_with_repeats(rng, 20_000, n_repeats=3,
+                                          repeat_len=300)
+    reads = simulate.shred(rng, genome, coverage=30, read_len=100,
+                           err_rate=0.005, circular=True)
+    cfg = TConfig(size_kmer=k, max_read_length=100, batch_reads=4096,
+                  estimated_kmers=1 << 16, singletons=1 << 17,
+                  junction_capacity=1 << 14, sink_capacity=1 << 16,
+                  fp_rate=0.002)
+    batches = list(batch_iter(reads, cfg))
+    assert len(batches) >= 2
+    out = []
+    for dev in ("cpu", cuda):
+        p = Pipeline(cfg, device=dev)
+        before = KU.launches
+        for bases, lens in batches:
+            p.stream_step(bases, lens)
+        p.flush_junctions()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out.append(([CK.table_to_numpy(t) for t in (p.junctions, p.sinks)],
+                    KU.launches - before))
+    (ta, na), (tb, nb) = out
+    assert na == 0 and nb >= len(batches)
+    for x, y in zip(ta, tb):
+        assert int(x["count"]) > 0
+        for f in ("keys_hi", "keys_lo", "count", "dropped"):
+            np.testing.assert_array_equal(x[f], y[f])
         for u, v in zip(x["vals"], y["vals"]):
             np.testing.assert_array_equal(u, v)
 
