@@ -88,7 +88,10 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               at (a)'s shard shapes (--dist_parts picks parts)
   9 counters  every main-path kernel launched in each of the scale,
               paired, wide, dualk, stream and dist paths (counts set to 0 just
-              before each path and read just after it); phase 4's exact
+              before each path and read just after it, from the tallies'
+              `<kernel>_launches`, which kernels/build.py counts; a --root
+              tree from before that counts in module globals and reports
+              no launch counts, so its gates see none); phase 4's exact
               run at k = 21 on CUDA launches the compaction and the
               table upsert and no probe or cascade kernel; device
               launches of one
@@ -167,40 +170,75 @@ def _kernel_module(name: str):
         return None
 
 
+# the Metrics that the counted paths' Pipelines run with (counted_metrics):
+# kernels/build.py counts each launch in the tally of the innermost open
+# span's Metrics, a Pipeline's own, or the process default's outside
+# every span
+_COUNTED = []
+# the main path's kernels by their tally keys (`<kernel>_launches`)
+MAIN_KERNELS = ("probe", "cascade", "compact", "upsert")
+
+
+def counted_metrics():
+    """A Metrics for a Pipeline whose launches the smoke counts (each
+    zero_counts sets them to 0 again)."""
+    from faucet_tpu_torch import Metrics
+
+    m = Metrics()
+    _COUNTED.append(m)
+    return m
+
+
+def _tallies() -> list:
+    """The process default's tally (no span is open where the smoke
+    counts) and the counted Pipelines'."""
+    from faucet_tpu_torch import metrics as TM
+
+    return [TM.current().tally] + [m.tally for m in _COUNTED]
+
+
 def zero_counts():
     """Set the main path's launch counts to 0."""
-    from faucet_tpu_torch.kernels import cascade as KC
-    from faucet_tpu_torch.kernels import compact as KCP
-    from faucet_tpu_torch.kernels import probe as KP
+    for tally in _tallies():
+        for k in [k for k in tally if k.endswith("_launches")]:
+            del tally[k]
 
-    KP.launches = KC.launches = KCP.launches = 0
-    for mod in map(_kernel_module, ("wide_ext", "upsert")):
-        if mod is not None:
-            mod.launches = 0
-    variants = getattr(KC, "variant_launches", {})
-    variants.update(dict.fromkeys(variants, 0))
+
+def launch_tally():
+    """Every `<kernel>_launches` since zero_counts, summed over
+    _tallies(); None on a tree whose kernels count launches in module
+    globals (--root of a tree from before kernels/build.py `launch`),
+    which reports no launch counts."""
+    from faucet_tpu_torch.kernels import build as KB
+
+    if not hasattr(KB, "launch"):
+        return None
+    out = {}
+    for tally in _tallies():
+        for k, n in tally.items():
+            if k.endswith("_launches"):
+                out[k] = out.get(k, 0) + n
+    return out
 
 
 def read_variants() -> dict:
     """The cascade launches by the reference's Pallas variant each stands
     in for: dense (B2), sparse (B3), multi_tile (B4); empty on a tree
-    that does not count them (--root)."""
-    from faucet_tpu_torch.kernels import cascade as KC
-
-    return dict(getattr(KC, "variant_launches", {}))
+    that reports no launch counts (--root)."""
+    tally = launch_tally()
+    if tally is None:
+        return {}
+    return {v: tally.get(f"cascade_{v}_launches", 0)
+            for v in ("dense", "sparse", "multi_tile")}
 
 
 def read_counts() -> dict:
-    from faucet_tpu_torch.kernels import cascade as KC
-    from faucet_tpu_torch.kernels import compact as KCP
-    from faucet_tpu_torch.kernels import probe as KP
-
-    counts = {"probe": KP.launches, "cascade": KC.launches,
-              "compact": KCP.launches}
-    KU = _kernel_module("upsert")
-    if KU is not None:
-        counts["upsert"] = KU.launches
-    return counts
+    """The main path's launches by kernel; empty on a tree that reports
+    no launch counts (--root)."""
+    tally = launch_tally()
+    if tally is None:
+        return {}
+    return {k: tally.get(f"{k}_launches", 0) for k in MAIN_KERNELS}
 
 
 def phase(name):
@@ -444,6 +482,14 @@ def n_unique(t) -> int:
     return int(torch.unique(t).numel())
 
 
+def _blocks(hi, lo, log2_bits: int):
+    """The filter blocks of codes (kernels/probe.py block_address)."""
+    from faucet_tpu_torch.core.hashing import hash_pair
+    from faucet_tpu_torch.kernels import probe as KP
+
+    return KP.block_address(*hash_pair(hi, lo), log2_bits)[0]
+
+
 # integer instructions per key of the fused hashing (two fmix32 chains,
 # block and rotation) and per probe bit (address, selects, test), from
 # csrc/hash.cuh and csrc/bloom_bits.cuh
@@ -531,7 +577,7 @@ def check_probe(gen, dev, lib, cases=PROBE_CASES, prefix="probe_"):
             words.data_ptr(), words.shape[0], hi.data_ptr(), lo.data_ptr(),
             mask.data_ptr(), mask.numel(), out.data_ptr(), n, nh,
             log2_bits - 9, 0, KB.stream_of(words)), "bloom_contains")
-        blocks, _, _ = KP._block_h1r_h2(hi[live], lo[live], log2_bits)
+        blocks = _blocks(hi[live], lo[live], log2_bits)
         n_live = int(live.sum())
         rec = {"shape": list(shape), "hit_rate": float(want.float().mean()),
                "ms": cuda_ms(lambda: KP.bloom_contains_codes(*args), 20),
@@ -617,7 +663,6 @@ def _cascade_case(dev, lib, tag, la, lb, nha, nhb, batches):
     import torch
 
     from faucet_tpu_torch.kernels import cascade as KC
-    from faucet_tpu_torch.kernels import probe as KP
 
     a = torch.zeros((1 << (la - 5),), dtype=torch.int32, device=dev)
     b = torch.zeros((1 << (lb - 5),), dtype=torch.int32, device=dev)
@@ -651,8 +696,8 @@ def _cascade_case(dev, lib, tag, la, lb, nha, nhb, batches):
         # touched block of A and B read once, each changed block
         # written once
         keep = live & (hi != KC.SENTINEL)
-        ba, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], la)
-        bb, _, _ = KP._block_h1r_h2(hi[keep], lo[keep], lb)
+        ba = _blocks(hi[keep], lo[keep], la)
+        bb = _blocks(hi[keep], lo[keep], lb)
         changed = lambda x, y: int((x != y).view(-1, 16).any(1).sum())
         n_live = rec["live"]
         rec.update(bound(
@@ -709,7 +754,6 @@ def check_scatter(gen, dev, lib):
 
     from faucet_tpu_torch.kernels import bloom_scatter as KS
     from faucet_tpu_torch.kernels import build as KB
-    from faucet_tpu_torch.kernels import probe as KP
 
     res, n = {}, 573_440
     hi, lo = _rand_keys(gen, n, dev)
@@ -740,7 +784,7 @@ def check_scatter(gen, dev, lib):
         raw = lambda w: lib.ft_bloom_insert_codes(
             w.data_ptr(), w.shape[0], hi.data_ptr(), lo.data_ptr(),
             live.data_ptr(), n, nh, log2_bits - 9, 0, KB.stream_of(w))
-        blocks, _, _ = KP._block_h1r_h2(hi[live], lo[live], log2_bits)
+        blocks = _blocks(hi[live], lo[live], log2_bits)
         res[f"insert_codes_{name}"] = compare(
             f"bloom_insert_codes {name} n_hash {nh}", KS.bloom_insert_codes,
             KS.bloom_insert_codes_plain, w0, args, raw,
@@ -893,7 +937,7 @@ def check_wide_ext(gen, dev, lib, k: int = 55, B: int = 8192, L: int = 100):
                                            device=dev), k)
     canon, other = wv.canon, WD.wselect(wv.canon_is_fwd, wv.rc, wv.fwd)
     got = KW.slot_ext_keys(canon, other, k)
-    want = WD.slot_ext_keys_wide_plain(canon, other, k)
+    want = KW.slot_ext_keys_plain(canon, other, k)
     torch.cuda.synchronize()
     err = max(int((g - w).abs().max()) for g, w in zip(got, want))
     if err:
@@ -907,7 +951,7 @@ def check_wide_ext(gen, dev, lib, k: int = 55, B: int = 8192, L: int = 100):
            "ms": cuda_ms(lambda: KW.slot_ext_keys(canon, other, k), 20),
            "device_ms": launch_loop_ms(raw),
            "plain_ms": cuda_ms(
-               lambda: WD.slot_ext_keys_wide_plain(canon, other, k), 20),
+               lambda: KW.slot_ext_keys_plain(canon, other, k), 20),
            "library_ms": None, "max_abs_err": err,
            # each window's 8 input words and 16 output keys, as int64
            **bound(192 * n, WIDE_EXT_OPS * n)}
@@ -929,7 +973,7 @@ UPSERT_CASES = (
 def check_upsert(dev, n: int = 8192, reps: int = 20):
     """The hash table's probe rounds (kernels/upsert.py probe_rounds,
     csrc/table_upsert.cu, no Pallas counterpart) against the torch rounds
-    (core/table.py probe_rounds_plain) at a k = 55 stream batch's sink and
+    (probe_rounds_plain beside it) at a k = 55 stream batch's sink and
     junction calls: 8,192 lanes (the scan's K), half of them keys the
     table holds, into the cell's tables filled to about a dataset's end.
     Bit-identical rows [:cap], count and dropped; the wrapper, the kernel
@@ -969,7 +1013,7 @@ def check_upsert(dev, n: int = 8192, reps: int = 20):
                       device=dev)
         for lo_key in range(0, fill, 1 << 16):
             sk = batch(1 << 16, lo_key, min(lo_key + (1 << 16), fill))
-            tbl = TT.probe_rounds_plain(tbl, *sk, modes)
+            tbl = KU.probe_rounds_plain(tbl, *sk, modes)
         # half the batch's keys held by the table, half new
         fresh = lambda: batch(n, fill // 2, fill + fill // 2)
         clone = lambda t: t._replace(
@@ -977,7 +1021,7 @@ def check_upsert(dev, n: int = 8192, reps: int = 20):
             vals=tuple(v.clone() for v in t.vals))
         skhi, sklo, cvals, rep = fresh()
         pending = []
-        orig = TT._rounds
+        orig = KU.rounds
 
         def rounds(step, p, max_rounds):
             def counted(r, p):
@@ -985,19 +1029,20 @@ def check_upsert(dev, n: int = 8192, reps: int = 20):
                 return step(r, p)
             return orig(counted, p, max_rounds)
 
-        TT._rounds = rounds
+        KU.rounds = rounds
         m = TM.Metrics()
         try:
             with m.span("plain"):
-                want = TT.probe_rounds_plain(clone(tbl), skhi, sklo, cvals,
+                want = KU.probe_rounds_plain(clone(tbl), skhi, sklo, cvals,
                                              rep, modes)
         finally:
-            TT._rounds = orig
-        before = KU.launches
-        got = KU.probe_rounds(clone(tbl), skhi, sklo, cvals, rep.clone(),
-                              modes)
+            KU.rounds = orig
+        mk = TM.Metrics()
+        with mk.span("kernel"):
+            got = KU.probe_rounds(clone(tbl), skhi, sklo, cvals,
+                                  rep.clone(), modes)
         torch.cuda.synchronize()
-        launches = KU.launches - before
+        launches = mk.tally.get("upsert_launches", 0)
         err = 0
         for x, y in zip((got.keys_hi, got.keys_lo) + got.vals,
                         (want.keys_hi, want.keys_lo) + want.vals):
@@ -1018,7 +1063,7 @@ def check_upsert(dev, n: int = 8192, reps: int = 20):
         nbytes = (n * (16 + 1 + row) + 8 * sum(pending) + won * (24 + 8)
                   + 2 * row * (live - int(want.dropped)))
         wrapped = lambda a: KU.probe_rounds(tbl, *a, modes)
-        plain = lambda a: TT.probe_rounds_plain(tbl, *a, modes)
+        plain = lambda a: KU.probe_rounds_plain(tbl, *a, modes)
         setup = lambda: (fresh(),)
         rec = {"lanes": n, "live": live, "capacity": cap,
                "held": int(tbl.count), "won": won,
@@ -1066,7 +1111,7 @@ def run_entries():
             setup=lambda: (BL.make_bloom(log2_bits, dev),))
         log(f"bloom_insert 2**{log2_bits} bits, n_hash {nh}: {ms * 1e3:.1f} "
             "us per call")
-    KS.launches_keys = KS.launches_bits = 0
+    zero_counts()
     for log2_bits, nh in ((27, 4), (25, 3)):
         bg = BL.make_bloom(log2_bits, dev)
         bc = BL.make_bloom(log2_bits)
@@ -1077,8 +1122,10 @@ def run_entries():
     bits = KS.scatter_or_bits(w0.clone(), pos)
     if not torch.equal(bits.cpu(), KS.scatter_or_bits(w0.cpu(), pos.cpu())):
         raise AssertionError("scatter_or_bits: CUDA != CPU")
-    report["entry_launches"] = {"bloom_insert_codes": KS.launches_keys,
-                                "scatter_or_bits": KS.launches_bits}
+    tally = launch_tally()
+    report["entry_launches"] = {} if tally is None else {
+        k: tally.get(f"{k}_launches", 0)
+        for k in ("bloom_insert_codes", "scatter_or_bits")}
     report["phases"]["entries"].update(rec)
     log(f"bloom_insert (A, B) and scatter_or_bits on CUDA == on the CPU; "
         f"launches {report['entry_launches']}")
@@ -1132,7 +1179,7 @@ def _parity_run(name, k, kw, dev):
     reads = parity_case()[1]
     cfg = _parity_cfg(k, kw)
     t0 = time.perf_counter()
-    p = Pipeline(cfg, device=dev)
+    p = Pipeline(cfg, counted_metrics(), device=dev)
     walk = "walk_round_wide" if cfg.wide else "walk_round"
     orig, wrapped, wst = _walk_timer(name=walk)
     if dev == "cuda":
@@ -1260,7 +1307,6 @@ def _walk_timer(profile_round=None, name: str = "walk_round",
 def run_scale(profile: bool = False):
     import torch
 
-    from faucet_tpu_torch import Metrics
     from faucet_tpu_torch.graph import walk as W
     from faucet_tpu_torch.pipeline import Pipeline, batch_iter
 
@@ -1269,7 +1315,7 @@ def run_scale(profile: bool = False):
     log(f"{SCALE_MBP} Mbp genome, {len(reads)} reads synthesized in "
         f"{time.perf_counter() - t0:.2f} s")
     cfg = scale_config(len(genome), len(reads))
-    p = Pipeline(cfg, Metrics(), device="cuda")
+    p = Pipeline(cfg, counted_metrics(), device="cuda")
     ph = {}
 
     def timed(name, fn):
@@ -1367,7 +1413,7 @@ def run_paired():
     file mode: the reference's record PAIRED_RECORD, >= 99% genome-true."""
     import torch
 
-    from faucet_tpu_torch import Config, Metrics
+    from faucet_tpu_torch import Config
     from faucet_tpu_torch.graph import walk as W
     from faucet_tpu_torch.pipeline import Pipeline, batch_iter
 
@@ -1378,7 +1424,7 @@ def run_paired():
                  pair_capacity=1 << 14, paired_ends=True)
     out = {}
     for dev in ("cpu", "cuda"):
-        p = Pipeline(cfg, Metrics(), device=dev)
+        p = Pipeline(cfg, counted_metrics(), device=dev)
         p.load_reads(reads)
         p.scan_paired(reads)
         g = p.clean_graph(p.build())
@@ -1404,7 +1450,7 @@ def run_paired():
     log(f"{SCALE_MBP} Mbp genome, {len(reads)} interleaved mates "
         f"synthesized in {time.perf_counter() - t0:.2f} s")
     cfg = scale_config(len(genome), len(reads), paired_ends=True)
-    p = Pipeline(cfg, Metrics(), device="cuda")
+    p = Pipeline(cfg, counted_metrics(), device="cuda")
     ph = {}
     orig, wrapped, wst = _walk_timer()
     W.walk_round = wrapped
@@ -1518,7 +1564,6 @@ def run_wide(profile: bool = False):
     sinks) and the peak device memory."""
     import torch
 
-    from faucet_tpu_torch import Metrics
     from faucet_tpu_torch.graph import walk as W
     from faucet_tpu_torch.pipeline import Pipeline, batch_iter
 
@@ -1529,7 +1574,7 @@ def run_wide(profile: bool = False):
     cfg = scale_config(len(genome), len(reads), k=55, read_len=150)
     assert cfg.wide and not cfg.use_node_junctions
     torch.cuda.reset_peak_memory_stats()
-    p = Pipeline(cfg, Metrics(), device="cuda")
+    p = Pipeline(cfg, counted_metrics(), device="cuda")
     ph, lanes = {}, {"queries": 0, "grid": 0, "live": 0, "compact": []}
 
     def timed(name, fn):
@@ -1567,8 +1612,8 @@ def run_wide(profile: bool = False):
     ms_step = 1e3 * wst["seconds"] / max(wst["steps"], 1)
     # the extension keys: one launch a scan batch (zero_counts ran just
     # before this phase)
-    KW = _kernel_module("wide_ext")
-    wide_ext = None if KW is None else KW.launches
+    tally = launch_tally()
+    wide_ext = None if tally is None else tally.get("wide_ext_launches", 0)
     log(f"wide_ext launches {wide_ext}, scan batches {n_batches}")
     if wide_ext not in (None, n_batches):
         raise AssertionError(f"wide_ext launches {wide_ext} != "
@@ -1629,7 +1674,6 @@ def run_dualk(pass1=None):
 
     import torch
 
-    from faucet_tpu_torch import Metrics
     from faucet_tpu_torch.graph import walk as W
     from faucet_tpu_torch.pipeline import Pipeline, batch_iter, contig_chunks
 
@@ -1650,7 +1694,7 @@ def run_dualk(pass1=None):
     else:
         genome, reads = scale_reads()
         cfg = scale_config(len(genome), len(reads))
-        p = Pipeline(cfg, Metrics(), device="cuda")
+        p = Pipeline(cfg, counted_metrics(), device="cuda")
         g = timed("pass1", lambda: p.run_file_mode(reads, reads))
         del p
         lens = [len(g.contigs[i].seq) for i in g.live()]
@@ -1664,7 +1708,7 @@ def run_dualk(pass1=None):
     n_batches = (-(-len(reads) // B), -(-len(chunks) // B))
     log(f"{len(chunks) // 2} contig chunks (each twice); second pass "
         f"batches: {n_batches[0]} of reads, {n_batches[1]} of chunks")
-    p2 = Pipeline(cfg2, Metrics(), device="cuda")
+    p2 = Pipeline(cfg2, counted_metrics(), device="cuda")
 
     def batches():
         return itertools.chain(batch_iter(reads, cfg2),
@@ -1984,7 +2028,7 @@ def run_stream(n_batches: int = 16, warmup: int = 2, groups: int = 5,
                profile: bool = False):
     import torch
 
-    from faucet_tpu_torch import Config, Metrics
+    from faucet_tpu_torch import Config
     from faucet_tpu_torch.pipeline import Pipeline
 
     # bench.py's configuration (bench.py build())
@@ -2014,7 +2058,7 @@ def run_stream(n_batches: int = 16, warmup: int = 2, groups: int = 5,
         `compact`; returns (reads/s, junction and sink arrays)."""
         KCP.mask_indices = compact
         try:
-            p = Pipeline(cfg, Metrics(), device="cuda")
+            p = Pipeline(cfg, counted_metrics(), device="cuda")
             for bases, lens in batches[:warmup]:
                 p.stream_step(bases, lens)
             torch.cuda.synchronize()
@@ -2123,7 +2167,8 @@ def kernel_line(launches, variants, origin):
     """One record per TPU kernel (B1-B7). B2, B3 and B4 are the three
     Pallas variants of cascade_insert_fused, all replaced by
     csrc/cascade.cu; each record counts the launches that stood in for its
-    variant (kernels/cascade.py variant_launches). The reference takes its
+    variant (the tally's `cascade_<variant>_launches`, kernels/cascade.py).
+    The reference takes its
     multi-tile variant (B4) only for a filter A larger than one tile,
     which the dual-k path's is not: B4's launches are the wide path's."""
     k = report.get("kernels", {})
@@ -2295,7 +2340,6 @@ def _dist_scale_rank(mesh):
 
     import torch
 
-    from faucet_tpu_torch import Metrics
     from faucet_tpu_torch.dist import swalk as SW
     from faucet_tpu_torch.dist.sharded import ShardedPipeline
     from faucet_tpu_torch.pipeline import batch_iter
@@ -2305,7 +2349,7 @@ def _dist_scale_rank(mesh):
     cfg = dataclasses.replace(scale_config(len(genome), len(reads)),
                               n_shards=mesh.n_shards)
     torch.cuda.reset_peak_memory_stats(dev)
-    sp = ShardedPipeline(cfg, mesh, Metrics())
+    sp = ShardedPipeline(cfg, mesh, counted_metrics())
     ph, coll = {}, {}
 
     def timed(name, fn):
@@ -2376,7 +2420,7 @@ def _dist_parity_rank(mesh):
     import copy
     import dataclasses
 
-    from faucet_tpu_torch import Config, Metrics
+    from faucet_tpu_torch import Config
     from faucet_tpu_torch.dist.sharded import ShardedPipeline
 
     inputs = {"parity": parity_case()[1], "phased": phased_case()[0]}
@@ -2384,7 +2428,7 @@ def _dist_parity_rank(mesh):
     for name, kw, inp, paired, both_cleans in _dist_parity_configs():
         t0 = time.perf_counter()
         reads = inputs[inp]
-        sp = ShardedPipeline(Config(**kw), mesh, Metrics())
+        sp = ShardedPipeline(Config(**kw), mesh, counted_metrics())
         sp.load_reads(reads)
         (sp.scan_paired if paired else sp.scan_reads)(reads)
         g = sp.build()
@@ -2409,7 +2453,7 @@ def _dist_parity_rank(mesh):
 def _dist_nccl_rank(mesh):
     """Part (c): n_shards = 1 over nccl against the plain Pipeline on the
     same card, phase 4's k = 21 case."""
-    from faucet_tpu_torch import Config, Metrics
+    from faucet_tpu_torch import Config
     from faucet_tpu_torch.dist.sharded import ShardedPipeline
     from faucet_tpu_torch.pipeline import Pipeline
 
@@ -2418,9 +2462,9 @@ def _dist_nccl_rank(mesh):
                  estimated_kmers=1 << 16, singletons=1 << 17,
                  junction_capacity=1 << 14, sink_capacity=1 << 17,
                  fp_rate=0.002)
-    sp = ShardedPipeline(cfg, mesh, Metrics())
+    sp = ShardedPipeline(cfg, mesh, counted_metrics())
     gs = sp.run_file_mode(reads, reads)
-    p = Pipeline(cfg, Metrics(), device=mesh.device)
+    p = Pipeline(cfg, counted_metrics(), device=mesh.device)
     g1 = p.run_file_mode(reads, reads)
     keys = lambda g: sorted(g.contigs[i].canonical_seq() for i in g.live())
     slots, content = _same_tables(_np_tables(sp), _single_tables(p))
@@ -2606,13 +2650,12 @@ def _dist_single_tables(r0) -> dict:
     for part (a)'s configuration (load + scan)."""
     import dataclasses
 
-    from faucet_tpu_torch import Metrics
     from faucet_tpu_torch.pipeline import Pipeline, batch_iter
 
     genome, reads = scale_reads()
     cfg = dataclasses.replace(scale_config(len(genome), len(reads)),
                               n_shards=DIST_SHARDS)
-    p = Pipeline(cfg, Metrics(), device="cuda")
+    p = Pipeline(cfg, counted_metrics(), device="cuda")
     p.load_batches(batch_iter(reads, cfg))
     p.scan_batches(batch_iter(reads, cfg))
     return _single_tables(p)
@@ -2734,7 +2777,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=REPO,
                     help="import faucet_tpu_torch from this checkout "
                          "instead (to compare two trees in one run; their "
-                         "phases 4-8 share the API)")
+                         "phases 4-8 share the API; a tree whose kernels "
+                         "count launches in module globals reports no "
+                         "launch counts)")
     args = ap.parse_args(argv)
     want = args.phases.split(",")
     global ROOT

@@ -261,7 +261,7 @@ class Config:
     def node_view(self) -> "Config":
         """This config with the A/B slots remapped to the branch-node
         cascade D/E — the node cascade then reuses the generic Cascade
-        machinery (make_cascade / cascade_insert / cascade_solid)
+        machinery (make_cascade / cascade_insert_nbs / cascade_solid)
         verbatim, including exact-table mode and sharded addressing."""
         import dataclasses as _dc
 

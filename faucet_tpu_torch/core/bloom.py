@@ -2,13 +2,13 @@
 
 Port of faucet_tpu/core/bloom.py, with its exact-table mode (cfg.exact).
 A filter is an int32 word array (uint32 bit patterns) of 512-bit blocks;
-a key's n_hash bits all live in one block, bit j = (h1r + (j+1)*h2) &
-511, so a probe is one 64-byte read. Membership, plain inserts and
-cascade inserts go through kernels/probe.py, kernels/bloom_scatter.py and
-kernels/cascade.py, which launch the CUDA kernels for CUDA tensors and
-take their plain torch versions for CPU tensors. All three take the
-codes themselves: their kernels hash in registers, one launch per
-membership query and per plain insert.
+a key's n_hash bits all live in one block (kernels/probe.py
+`block_address` and `block_bits`), so a probe is one 64-byte read.
+Membership, plain inserts and cascade inserts go through kernels/probe.py,
+kernels/bloom_scatter.py and kernels/cascade.py, which launch the CUDA
+kernels for CUDA tensors and take their plain torch versions for CPU
+tensors. All three take the codes themselves: their kernels hash in
+registers, one launch per membership query and per plain insert.
 
 Within a batch the cascade keeps the reference's sequential semantics by
 counting duplicate keys: a k-mer seen twice in one batch is solid.
@@ -28,8 +28,6 @@ from faucet_tpu_torch.core import table as T
 from faucet_tpu_torch.kernels import bloom_scatter as SK
 from faucet_tpu_torch.kernels import cascade as CK
 from faucet_tpu_torch.kernels import probe as PK
-# the blocked addressing lives with the probe kernel's plain version
-from faucet_tpu_torch.kernels.probe import BLOCK_BITS, _block_h1r_h2
 
 
 class Bloom(NamedTuple):
@@ -40,14 +38,6 @@ def make_bloom(log2_bits: int, device=None) -> Bloom:
     assert log2_bits >= 5
     return Bloom(words=torch.zeros((1 << (log2_bits - 5),),
                                    dtype=torch.int32, device=device))
-
-
-def _block_and_bits(khi, klo, n_hash: int, log2_bits: int,
-                    shard_bits: int = 0):
-    """(block [...], bits [..., n_hash] in [0, 512))."""
-    block, h1r, h2 = _block_h1r_h2(khi, klo, log2_bits, shard_bits)
-    j = torch.arange(1, n_hash + 1, device=khi.device, dtype=torch.int64)
-    return block, (h1r[..., None] + j * h2[..., None]) & 511
 
 
 def bloom_insert(b: Bloom, khi, klo, mask, n_hash: int,
@@ -85,7 +75,7 @@ class Cascade(NamedTuple):
 
 def make_cascade(cfg, device=None) -> Cascade:
     # the reference's dummies stay splittable into n_shards pieces
-    dummy_log2 = BLOCK_BITS + cfg.shard_bits
+    dummy_log2 = PK.BLOCK_BITS + cfg.shard_bits
     dummy_cap = max(2, 2 * cfg.n_shards)
     if cfg.exact:
         return Cascade(make_bloom(dummy_log2, device),
@@ -98,24 +88,13 @@ def make_cascade(cfg, device=None) -> Cascade:
                    T.make(dummy_cap, device=device))
 
 
-def cascade_insert(c: Cascade, khi, klo, mask, cfg,
-                   sparse: bool = False) -> Cascade:
-    """Phase-1 load: if A contains k: B.add(k) else A.add(k), batched."""
-    return cascade_insert_nb(c, khi, klo, mask, cfg, sparse=sparse)[0]
-
-
-def cascade_insert_nb(c: Cascade, khi, klo, mask, cfg, sparse: bool = False
-                      ) -> Tuple[Cascade, torch.Tensor]:
-    c, new_b, _ = cascade_insert_nbs(c, khi, klo, mask, cfg, sparse=sparse)
-    return c, new_b
-
-
 def cascade_insert_nbs(c: Cascade, khi, klo, mask, cfg, sparse: bool = False
                        ) -> Tuple[Cascade, torch.Tensor, torch.Tensor]:
-    """cascade_insert + per-lane (new_b, solid) flags: new_b marks the lane
-    whose insert first promoted its k-mer into B; solid is B membership as
-    of the lane's own insert (in B or A before the batch, or an earlier
-    in-batch occurrence).
+    """Phase-1 load: if A contains k: B.add(k) else A.add(k), batched;
+    returns the cascade and per-lane (new_b, solid) flags: new_b marks the
+    lane whose insert first promoted its k-mer into B; solid is B
+    membership as of the lane's own insert (in B or A before the batch,
+    or an earlier in-batch occurrence).
 
     The filters of `c` are updated in place and `c` is returned. Mostly
     masked input (the node-endpoint inserts) needs no path of its own: the

@@ -32,6 +32,7 @@ from faucet_tpu_torch.core import wide as WD
 from faucet_tpu_torch.core.hashing import pair_key
 from faucet_tpu_torch.core.slots import entry_slot, exit_slot
 from faucet_tpu_torch.kernels import compact as CP
+from faucet_tpu_torch.kernels import wide_ext as WX
 
 EMPTY = 0xFFFFFFFF
 I32 = torch.int32
@@ -355,7 +356,7 @@ def scan_core(solid_fn, bases, lens, cfg, node_solid_fn=None,
 
         def ext_keys():
             with M.span("ext_keys"):
-                return WD.slot_ext_keys_wide(wv.canon, other, k)
+                return WX.slot_ext_keys(wv.canon, other, k)
     B, P = key_hi.shape
     solid = (window_solid & valid) if window_solid is not None \
         else solid_fn(key_hi, key_lo, valid)
@@ -519,8 +520,8 @@ def load_batch_nodes_s(cascade: BL.Cascade, node_cascade: BL.Cascade,
         nhi = torch.cat([pk_hi.reshape(-1), sk_hi.reshape(-1)])
         nlo = torch.cat([pk_lo.reshape(-1), sk_lo.reshape(-1)])
         M.count("node_keys", nhi.shape[0])
-        node_cascade = BL.cascade_insert(node_cascade, nhi, nlo,
-                                         torch.cat([new_b, new_b]),
-                                         cfg.node_view(), sparse=True)
+        node_cascade, _, _ = BL.cascade_insert_nbs(
+            node_cascade, nhi, nlo, torch.cat([new_b, new_b]),
+            cfg.node_view(), sparse=True)
     return (cascade, node_cascade, new_b.sum(),
             solid.reshape(view.canon_hi.shape))

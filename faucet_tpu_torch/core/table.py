@@ -15,9 +15,10 @@ torch differences, each handled here:
   the reference, so index_put_ stays deterministic where it matters;
 - the reference's device `while_loop` becomes, on CUDA tensors, one
   launch of a kernel that runs every probe round of the call
-  (kernels/upsert.py, csrc/table_upsert.cu), and on CPU tensors a host
-  loop that checks `pending.any()` every ROUND_CHUNK probe rounds (extra
-  rounds are no-ops on settled lanes, so results are identical);
+  (kernels/upsert.py, csrc/table_upsert.cu), and on CPU tensors, and in
+  `lookup` on both, a host loop (kernels/upsert.py `rounds`) that checks
+  `pending.any()` every ROUND_CHUNK probe rounds (extra rounds are no-ops
+  on settled lanes, so results are identical);
 - upserts update the table's tensors in place (the reference's jit
   donates them); count/dropped are 0-d int64 tensors.
 """
@@ -31,10 +32,9 @@ from faucet_tpu_torch import metrics as M
 from faucet_tpu_torch.core import u32x2 as u2
 from faucet_tpu_torch.core.hashing import hash_pair
 from faucet_tpu_torch.kernels import upsert as KU
+from faucet_tpu_torch.kernels.upsert import EMPTY_I32, probe_idx, rounds
 
 EMPTY = 0xFFFFFFFF  # keys_hi sentinel: valid k<=31 codes have hi < 2^30
-EMPTY_I32 = -1      # the same bits as stored
-ROUND_CHUNK = 4     # probe rounds between host checks of `pending`
 
 
 class Table(NamedTuple):
@@ -60,16 +60,6 @@ def make(cap: int, val_specs: Tuple[Tuple[tuple, torch.dtype], ...] = (),
     zero = lambda: torch.zeros((), dtype=torch.int64, device=device)
     return Table(keys_hi=full(), keys_lo=full(), vals=vals, count=zero(),
                  dropped=zero())
-
-
-def _probe_idx(h1, h2, r: int, cap: int, shard_bits: int = 0):
-    """Probe slot for round r (owner-prefixed when shard_bits > 0)."""
-    local_cap = cap >> shard_bits
-    idx = (h1 + r * h2) & (local_cap - 1)
-    if shard_bits:
-        idx = idx | ((h1 >> (32 - shard_bits))
-                     << (local_cap.bit_length() - 1))
-    return idx
 
 
 def _segment(v, seg, n: int, mode: str):
@@ -101,23 +91,6 @@ def _dedupe(khi, klo, vals, mask, modes):
     return skhi, klo_m[sidx], combined, head & (skhi != EMPTY)
 
 
-def _rounds(step, pending, max_rounds: int):
-    """Run step(r) for r = 0, 1, ... until no lane is pending (checked
-    every ROUND_CHUNK rounds) or max_rounds is reached. Each step is a
-    span `probe_round`, counted in `table_probe_rounds`."""
-    r = 0
-    while r < max_rounds:
-        n = min(ROUND_CHUNK, max_rounds - r)
-        for _ in range(n):
-            with M.span("probe_round"):
-                pending = step(r, pending)
-            r += 1
-        M.count("table_probe_rounds", n)
-        if not bool(M.fetch(pending.any())):
-            break
-    return pending
-
-
 def upsert(tbl: Table, khi, klo, vals: Tuple, mask, modes: Tuple[str, ...],
            max_rounds: int = 128, shard_bits: int = 0) -> Table:
     """Insert-or-combine a batch of keyed values, in place.
@@ -125,55 +98,12 @@ def upsert(tbl: Table, khi, klo, vals: Tuple, mask, modes: Tuple[str, ...],
     khi/klo: int64[N] uint32 words; vals: tuple of [N, ...] in the
     table's dtypes; mask: bool[N]; modes: per-value 'add' | 'max'. The
     batch is sorted and combined here; its probe rounds are one kernel
-    launch on CUDA tensors, probe_rounds_plain on CPU ones
-    (kernels/upsert.py). A span `upsert`."""
+    launch on CUDA tensors, the torch rounds on CPU ones
+    (kernels/upsert.py probe_rounds). A span `upsert`."""
     with M.span("upsert"):
         skhi, sklo, cvals, rep = _dedupe(khi, klo, vals, mask, modes)
         return KU.probe_rounds(tbl, skhi, sklo, cvals, rep, modes,
                                max_rounds, shard_bits)
-
-
-def probe_rounds_plain(tbl: Table, skhi, sklo, cvals, rep, modes,
-                       max_rounds: int = 128, shard_bits: int = 0) -> Table:
-    """The probe rounds in torch: _dedupe's sorted keys, combined values
-    and representative mask into tbl, the highest ticket winning each
-    empty slot. Each round a span `probe_round` (see _rounds)."""
-    cap = tbl.capacity
-    n = skhi.shape[0]
-    h1, h2 = hash_pair(skhi, sklo)
-    skhi32, sklo32 = u2.to_i32(skhi), u2.to_i32(sklo)
-    ticket = torch.arange(n, device=skhi.device)
-    claim = torch.full((cap + 1,), -1, dtype=torch.int64, device=skhi.device)
-    n_new = torch.zeros((), dtype=torch.int64, device=skhi.device)
-
-    def step(r, pending):
-        nonlocal n_new
-        idx = _probe_idx(h1, h2, r, cap, shard_bits)
-        cur_hi = tbl.keys_hi[idx]
-        is_match = pending & (cur_hi == skhi32) & (tbl.keys_lo[idx]
-                                                   == sklo32)
-        is_empty = pending & (cur_hi == EMPTY_I32)
-        # claim empties: highest ticket wins the slot, deterministically
-        claim.scatter_reduce_(0, torch.where(is_empty, idx, cap), ticket,
-                              "amax")
-        won = is_empty & (claim[idx] == ticket)
-        widx = torch.where(won, idx, cap)
-        tbl.keys_hi[widx] = skhi32
-        tbl.keys_lo[widx] = sklo32
-        write = is_match | won
-        widx = torch.where(write, idx, cap)
-        for tv, cv, mode in zip(tbl.vals, cvals, modes):
-            # winners start from zero-initialized slots, so add/max both
-            # land the combined batch value directly
-            cur = tv[widx]
-            new = cur + cv if mode == "add" else torch.maximum(cur, cv)
-            tv[widx] = new.to(tv.dtype)
-        n_new = n_new + won.sum()
-        return pending & ~write
-
-    pending = _rounds(step, rep, max_rounds)
-    return tbl._replace(count=tbl.count + n_new,
-                        dropped=tbl.dropped + pending.sum())
 
 
 def lookup(tbl: Table, khi, klo, mask, max_rounds: int = 128,
@@ -188,7 +118,7 @@ def lookup(tbl: Table, khi, klo, mask, max_rounds: int = 128,
 
     def step(r, pending):
         nonlocal found, idx_out
-        idx = _probe_idx(h1, h2, r, cap, shard_bits)
+        idx = probe_idx(h1, h2, r, cap, shard_bits)
         cur_hi = tbl.keys_hi[idx]
         hit = pending & (cur_hi == khi32) & (tbl.keys_lo[idx] == klo32)
         absent = pending & (cur_hi == EMPTY_I32)
@@ -196,7 +126,7 @@ def lookup(tbl: Table, khi, klo, mask, max_rounds: int = 128,
         idx_out = torch.where(hit, idx, idx_out)
         return pending & ~hit & ~absent
 
-    _rounds(step, mask, max_rounds)
+    rounds(step, mask, max_rounds)
     return found, idx_out
 
 

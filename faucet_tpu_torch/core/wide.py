@@ -23,7 +23,6 @@ import torch
 from faucet_tpu_torch.core.hashing import (M32, fmix32, fmix32_np,
                                            hash_pair, hash_pair_np)
 from faucet_tpu_torch.core.kmer import encode_seq
-from faucet_tpu_torch.kernels import wide_ext as WX
 
 NW = 4  # words per wide code
 
@@ -183,28 +182,6 @@ def left_ext_wide(fwd, rc, c, k: int):
 def canon_of_wide(fwd, rc):
     cisf = wle(fwd, rc)
     return wselect(cisf, fwd, rc), cisf
-
-
-def slot_ext_keys_wide(canon, other, k: int):
-    """Fingerprints of the 8 slot-extensions (canonical frame): [..., 8]
-    each, slots 0..3 right extensions by base, 4..7 left. One launch of
-    csrc/wide_ext.cu for CUDA tensors, the plain version below for CPU
-    tensors (kernels/wide_ext.py)."""
-    return WX.slot_ext_keys(canon, other, k)
-
-
-def slot_ext_keys_wide_plain(canon, other, k: int):
-    """Plain torch version of slot_ext_keys_wide (any device). Built one
-    extension at a time into the stacked grid, so only one extension's
-    intermediates are alive at once."""
-    shape = canon.shape[1:] + (8,)
-    his = torch.empty(shape, dtype=torch.int64, device=canon.device)
-    los = torch.empty_like(his)
-    for s in range(8):
-        ext = right_ext_wide if s < 4 else left_ext_wide
-        c, _ = canon_of_wide(*ext(canon, other, s % 4, k))
-        his[..., s], los[..., s] = fingerprint(c)
-    return his, los
 
 
 def wtop_base(fwd, k: int):

@@ -1,9 +1,10 @@
 // Blocked-Bloom bit addressing shared by the probe, cascade and scatter
 // kernels.
 //
-// Layout (must match faucet_tpu_torch/core/bloom.py and the reference
-// faucet_tpu/core/bloom.py): a filter is an array of uint32 words cut into
-// 512-bit blocks of 16 words (64 bytes). Probe bit j of a key is
+// Layout (the twin of faucet_tpu_torch/kernels/probe.py block_address and
+// block_bits, after the reference's faucet_tpu/core/bloom.py): a filter is
+// an array of uint32 words cut into 512-bit blocks of 16 words (64 bytes).
+// Probe bit j of a key is
 //   (h1r + (j + 1) * h2) & 511
 // inside the key's block. The filter is read and written as uint32; the
 // wrappers pass it 16-byte aligned, so a block is four uint4. Kernels that

@@ -2,7 +2,7 @@
 // scan's extension keys (wide_ext.cu).
 //
 // Bit for bit the torch functions faucet_tpu_torch/core/hashing.py
-// hash_pair and kernels/probe.py _block_from_hash (after the reference's
+// hash_pair and kernels/probe.py block_address (after the reference's
 // faucet_tpu/core/hashing.py and core/bloom.py _block_h1r_h2): murmur3's
 // 32-bit finalizer chained over the code's two words gives (h1, h2), h2
 // forced odd; the key's 512-bit block takes h1's low bits (and, sharded,

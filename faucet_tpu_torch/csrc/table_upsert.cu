@@ -3,7 +3,7 @@
 //
 // Replaces no Pallas kernel: the reference keeps its table in XLA jnp
 // (faucet_tpu/core/table.py upsert, a while_loop of scatter rounds). The
-// port's torch rounds (core/table.py probe_rounds_plain) spend ~31-40
+// port's torch rounds (kernels/upsert.py probe_rounds_plain) spend ~31-40
 // launches a round (probe index, key gathers, the claim scatter-max and
 // read-back, key and value index_put_, the winners' sum), a `claim` fill
 // of the whole table's size a call, and a blocking read of the pending
@@ -112,7 +112,7 @@ __device__ __forceinline__ FtLane ft_lane(const FtUpArgs& a, int64_t i,
   return l;
 }
 
-// core/table.py _probe_idx, in uint32: only the low 32 bits of
+// kernels/upsert.py probe_idx, in uint32: only the low 32 bits of
 // h1 + r * h2 reach the mask
 __device__ __forceinline__ uint32_t ft_slot(const FtUpArgs& a,
                                             const FtLane& l, int r) {

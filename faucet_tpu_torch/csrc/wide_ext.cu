@@ -3,7 +3,7 @@
 //
 // Replaces no Pallas kernel: the reference computes these keys as
 // XLA-fused jnp (faucet_tpu/core/wide.py slot_ext_keys_wide). The port's
-// plain version (faucet_tpu_torch/core/wide.py slot_ext_keys_wide_plain)
+// plain version (faucet_tpu_torch/kernels/wide_ext.py slot_ext_keys_plain)
 // spells the same arithmetic as int64 torch ops over [4, B, P] word
 // planes: ~586 launches and ~10.7 GB of traffic in a k = 55 stream batch
 // of 8,192 reads. Here the whole function is one launch.

@@ -75,8 +75,8 @@ def _load_local(mesh: Mesh, cascade: BL.Cascade, bases, lens, *, cfg_local,
     return R.route_consume(
         mesh, {"hi": khi, "lo": klo}, _owner(khi, klo, shard_bits), mask,
         n_shards, _cap_for(khi.shape[0], n_shards),
-        lambda c, recv, rmask: BL.cascade_insert(
-            c, recv["hi"], recv["lo"], rmask, cfg_local),
+        lambda c, recv, rmask: BL.cascade_insert_nbs(
+            c, recv["hi"], recv["lo"], rmask, cfg_local)[0],
         cascade)
 
 
@@ -98,7 +98,7 @@ def _load_local_nodes(mesh: Mesh, cascade: BL.Cascade,
 
     def consume(state, recv, rmask):
         cascade, node_cascade, unsent_inner = state
-        cascade, new_b = BL.cascade_insert_nb(
+        cascade, new_b, _ = BL.cascade_insert_nbs(
             cascade, recv["hi"], recv["lo"], rmask, cfg_local)
         nhi = torch.cat([recv["pk_hi"], recv["sk_hi"]])
         nlo = torch.cat([recv["pk_lo"], recv["sk_lo"]])
@@ -106,8 +106,8 @@ def _load_local_nodes(mesh: Mesh, cascade: BL.Cascade,
         node_cascade, un = R.route_consume(
             mesh, {"hi": nhi, "lo": nlo}, _owner(nhi, nlo, shard_bits),
             nmask, n_shards, _cap_for(nhi.shape[0], n_shards),
-            lambda nc, nrecv, nrmask: BL.cascade_insert(
-                nc, nrecv["hi"], nrecv["lo"], nrmask, ncfg, sparse=True),
+            lambda nc, nrecv, nrmask: BL.cascade_insert_nbs(
+                nc, nrecv["hi"], nrecv["lo"], nrmask, ncfg, sparse=True)[0],
             node_cascade)
         return cascade, node_cascade, unsent_inner + un
 

@@ -18,12 +18,17 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
+from faucet_tpu_torch import metrics as M
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("probe.cu", "cascade.cu", "bloom_scatter.cu", "compact.cu",
            "wide_ext.cu", "table_upsert.cu")
 HEADERS = ("bloom_bits.cuh", "hash.cuh")
+BLOCK_BITS = 9  # 512-bit filter blocks (csrc/bloom_bits.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -131,18 +136,78 @@ def check(code: int, what: str):
 
 
 def stream_of(t) -> int:
-    import torch
-
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda(name: str, t, dtype, ndim: int = 1):
-    """Wrapper argument check: CUDA device, dtype, contiguity, rank."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim}-D, got {t.dim()}-D")
+# ---- the one boundary of every kernel entry -------------------------------
+#
+# An entry (kernels/probe.py, cascade.py, bloom_scatter.py, compact.py,
+# wide_ext.py, upsert.py) checks what both of its versions need, on both
+# devices (`filter_bits`, `lanes` and its own ranges), then takes its
+# plain torch version for CPU tensors, or for CUDA tensors checks what
+# only the card needs (`on_card`) and makes ONE `launch`, which counts
+# itself in the tally as `<kernel>_launches`. Nothing falls back from one
+# version to the other.
+
+
+def filter_bits(name: str, words, log2_bits: int, shard_bits: int,
+                n_hash: int) -> int:
+    """Check a blocked filter of 2**log2_bits bits: int32 words, as many
+    as its bits fill, local block-index bits in [0, 32) once shard_bits
+    are taken, and n_hash in [1, 16]. Returns the local block bits."""
+    if words.dtype != torch.int32 or words.shape != (1 << (log2_bits - 5),):
+        raise ValueError(f"{name}: not an int32 filter of 2**{log2_bits} "
+                         f"bits: {words.dtype} {tuple(words.shape)}")
+    block_bits = log2_bits - shard_bits - BLOCK_BITS
+    if not 0 <= block_bits < 32:
+        raise ValueError(f"{name}: 2**{log2_bits} bits with shard_bits "
+                         f"{shard_bits}")
+    if not 1 <= n_hash <= 16:
+        raise ValueError(f"{name}: n_hash out of range: {n_hash}")
+    return block_bits
+
+
+def lanes(like, *named):
+    """Check each (name, tensor, dtype) of `named`: its dtype, and like's
+    shape and device (`like` may be one of them)."""
+    shape, dev = like.shape, like.device
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if t is not like and (t.shape != shape or t.device != dev):
+            raise ValueError(f"{name}: expected {tuple(shape)} on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+
+
+def on_card(*named, filters=()):
+    """The card's own check before a launch: each (name, tensor) of
+    `filters` and `named` contiguous on one CUDA device, and each filter's
+    words 16-byte aligned (its kernel reads a block as four uint4)."""
+    named = filters + named
+    first, t0 = named[0]
+    dev = t0.get_device()  # -1 off the card
+    if dev < 0:
+        raise ValueError(f"{first}: expected a CUDA tensor, got {t0.device}")
+    for name, t in named:
+        if t.get_device() != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on cuda:{dev}")
+    for name, t in filters:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+
+
+def launch(fn: str, count, *args, on_fail=None):
+    """One launch: library().ft_<fn>(*args). A non-zero return raises
+    (after on_fail(), which drops scratch a failed launch may leave
+    dirty); a launch is counted in the tally under `count`, a key or a
+    tuple of keys (`<kernel>_launches`)."""
+    code = getattr(library(), "ft_" + fn)(*args)
+    if code:
+        if on_fail is not None:
+            on_fail()
+        check(code, fn)
+    if isinstance(count, str):
+        M.count(count)
+    else:
+        for key in count:
+            M.count(key)

@@ -12,9 +12,9 @@ CUDA tensors take csrc/cascade.cu: three launches (count, apply, clear)
 around a scratch hash table that this module keeps per device and size,
 and no sort (see the source for the design). CPU tensors take
 `cascade_insert_plain`, which groups the batch with a stable sort as the
-reference does. Nothing falls back from one to the other. The filters are
-updated IN PLACE (the reference returns new arrays; the port saves the
-copy of 20 MB per batch).
+reference does (kernels/build.py has the one boundary of every kernel
+entry). The filters are updated IN PLACE (the reference returns new
+arrays; the port saves the copy of 20 MB per batch).
 
 Argument types: a_words, b_words int32 (uint32 bit patterns) of 2**la and
 2**lb bits; khi, klo int64[N] holding uint32 values; mask bool[N].
@@ -33,15 +33,16 @@ from faucet_tpu_torch.kernels.bloom_scatter import bloom_or_plain
 SENTINEL = 0xFFFFFFFF
 _KEY_LAST = (1 << 63) - 1  # sort key of masked lanes: after every key
 
-# kernel launches by cascade_insert, one per call (each call is three
-# device launches; reset and read by chip_smoke.py)
-launches = 0
-# the same launches by the Pallas variant of the reference's
-# cascade_insert_fused that each stands in for (one kernel serves all
-# three here): "sparse" where the caller flags a mostly masked batch
-# (_kernel_sparse), "multi_tile" where filter A is larger than the
-# reference's one tile (_kernel), else "dense" (_kernel_v2)
-variant_launches = {"dense": 0, "sparse": 0, "multi_tile": 0}
+# a call is counted in the tally as `cascade_launches` (one per call; each
+# call is three device launches) and again under the Pallas variant of
+# the reference's cascade_insert_fused that it stands in for (one kernel
+# serves all three here), `cascade_<variant>_launches`: "sparse" where the
+# caller flags a mostly masked batch (_kernel_sparse), "multi_tile" where
+# filter A is larger than the reference's one tile (_kernel), else "dense"
+# (_kernel_v2)
+VARIANTS = ("dense", "sparse", "multi_tile")
+_COUNTS = {v: ("cascade_launches", f"cascade_{v}_launches")
+           for v in VARIANTS}
 # the reference's one tile: filters A and B together in 22 MiB of VMEM
 _ONE_TILE_WORDS = (22 << 20) // 4
 
@@ -107,8 +108,8 @@ def cascade_insert_plain(a_words, b_words, khi, klo, mask, la: int, lb: int,
     (`group_by_key`); pre-batch A and B are probed at each key's first
     lane."""
     h1, h2 = hash_pair(khi, klo)
-    block_a, h1r, h2 = PK._block_from_hash(h1, h2, la, shard_bits)
-    block_b, _, _ = PK._block_from_hash(h1, h2, lb, shard_bits)
+    block_a, h1r, h2 = PK.block_address(h1, h2, la, shard_bits)
+    block_b, _, _ = PK.block_address(h1, h2, lb, shard_bits)
     sidx, slive, seg_start, rep, dup = group_by_key(khi, klo, mask)
     ba, bb, r1, r2 = (t[sidx] for t in (block_a, block_b, h1r, h2))
     in_a = PK.bloom_probe_keys_plain(a_words, torch.where(rep, ba, SENTINEL),
@@ -129,28 +130,19 @@ def cascade_insert(a_words, b_words, khi, klo, mask, la: int, lb: int,
     returns (new_b, solid) per lane. `sparse` is the reference's hint that
     the mask is mostly False: the kernel is the same (dead lanes exit at
     once), and the hint only names the variant the launch is counted as."""
-    global launches
+    bits_a = KB.filter_bits("a_words", a_words, la, shard_bits, n_hash_a)
+    bits_b = KB.filter_bits("b_words", b_words, lb, shard_bits, n_hash_b)
+    KB.lanes(khi, ("khi", khi, torch.int64), ("klo", klo, torch.int64),
+             ("mask", mask, torch.bool))
+    n = khi.shape[0] if khi.dim() == 1 else -1
+    if not 0 <= n < 1 << 28:
+        raise ValueError(f"khi {tuple(khi.shape)}: one dimension of at "
+                         f"most 2**28 lanes")
     if not a_words.is_cuda:
         return cascade_insert_plain(a_words, b_words, khi, klo, mask, la, lb,
                                     shard_bits, n_hash_a, n_hash_b)
-    for name, t, log2 in (("a_words", a_words, la), ("b_words", b_words, lb)):
-        KB.require_cuda(name, t, torch.int32)
-        if t.shape[0] != 1 << (log2 - 5) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: not a 16-byte aligned filter of "
-                             f"2**{log2} bits")
-        if not 0 <= log2 - shard_bits - PK.BLOCK_BITS < 32:
-            raise ValueError(f"{name}: 2**{log2} bits with shard_bits "
-                             f"{shard_bits}")
-    n = khi.shape[0]
-    for name, t, dt in (("khi", khi, torch.int64), ("klo", klo, torch.int64),
-                        ("mask", mask, torch.bool)):
-        KB.require_cuda(name, t, dt)
-        if t.shape[0] != n or t.device != a_words.device:
-            raise ValueError(f"{name}: shape/device mismatch")
-    if not (1 <= n_hash_a <= 16 and 1 <= n_hash_b <= 16):
-        raise ValueError(f"n_hash out of range: {n_hash_a}, {n_hash_b}")
-    if n >= 1 << 28:
-        raise ValueError(f"{n} lanes: at most 2**28 per call")
+    KB.on_card(("khi", khi), ("klo", klo), ("mask", mask),
+               filters=(("a_words", a_words), ("b_words", b_words)))
     dev = a_words.device
     new_b = torch.empty((n,), dtype=torch.bool, device=dev)
     solid = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -159,26 +151,22 @@ def cascade_insert(a_words, b_words, khi, klo, mask, la: int, lb: int,
     n_slots = n_slots_for(n)
     table = _table(dev, n_slots)
     lanes = torch.empty((n,), dtype=torch.int32, device=dev)
-    code = KB.library().ft_cascade_insert(
-        a_words.data_ptr(), a_words.shape[0], b_words.data_ptr(),
-        b_words.shape[0], khi.data_ptr(), klo.data_ptr(), mask.data_ptr(), n,
-        la - shard_bits - PK.BLOCK_BITS, lb - shard_bits - PK.BLOCK_BITS,
-        shard_bits, n_hash_a, n_hash_b, table.data_ptr(), n_slots,
-        lanes.data_ptr(), new_b.data_ptr(), solid.data_ptr(),
-        KB.stream_of(a_words))
-    if code:
-        # a launch that failed may leave slots claimed: drop the table
-        del _tables[(dev, n_slots)]
-        KB.check(code, "cascade_insert")
-    launches += 1
-    variant_launches[reference_variant(a_words.shape[0], b_words.shape[0],
-                                       sparse)] += 1
+    KB.launch("cascade_insert",
+              _COUNTS[reference_variant(a_words.shape[0], b_words.shape[0],
+                                        sparse)],
+              a_words.data_ptr(), a_words.shape[0], b_words.data_ptr(),
+              b_words.shape[0], khi.data_ptr(), klo.data_ptr(),
+              mask.data_ptr(), n, bits_a, bits_b, shard_bits, n_hash_a,
+              n_hash_b, table.data_ptr(), n_slots, lanes.data_ptr(),
+              new_b.data_ptr(), solid.data_ptr(), KB.stream_of(a_words),
+              # a launch that failed may leave slots claimed: drop the table
+              on_fail=lambda: _tables.pop((dev, n_slots)))
     return new_b, solid
 
 
 def reference_variant(wa: int, wb: int, sparse: bool) -> str:
-    """The key of variant_launches for a call on filters of wa and wb
-    words."""
+    """The variant (of VARIANTS) a call on filters of wa and wb words is
+    counted as."""
     if sparse:
         return "sparse"
     return "multi_tile" if wa > _ONE_TILE_WORDS - wb else "dense"

@@ -8,11 +8,12 @@ lanes, which may exceed cap. Slots at or past min(count, cap) are
 don't-care, as in the reference; callers mask by arange(cap) < count.
 
 CUDA tensors launch the single-pass kernel of csrc/compact.cu (one launch,
-no host sync), CPU tensors take the plain torch version; nothing falls
-back from one to the other. The kernel's look-back scratch (a ticket
-counter and one status word per 4,096-lane tile) is kept across calls per
-device and stream and grows with the mask; every call bumps the scratch's
-epoch instead of clearing it. Two streams never share a scratch.
+no host sync), CPU tensors take the plain torch version (kernels/build.py
+has the one boundary of every kernel entry). The kernel's look-back
+scratch (a ticket counter and one status word per 4,096-lane tile) is
+kept across calls per device and stream and grows with the mask; every
+call bumps the scratch's epoch instead of clearing it. Two streams never
+share a scratch.
 """
 from __future__ import annotations
 
@@ -20,16 +21,12 @@ import torch
 
 from faucet_tpu_torch.kernels import build as KB
 
-# kernel launches by mask_indices (reset and read by chip_smoke.py)
-launches = 0
-
 TILE = 4096           # mask lanes per tile (csrc/compact.cu FT_CP_TILE)
 EPOCH_LIMIT = 1 << 30  # epochs are 30 bits in a status word
 MAX_LANES = (1 << 31) - 16
 
 # (device, stream) -> [int64[1 + tiles] scratch, epoch of the last call]
 _scratch = {}
-_fn = None  # the library's ft_mask_indices
 
 
 def mask_indices_plain(mask, cap: int):
@@ -60,36 +57,32 @@ def _epoch(device, stream: int, tiles: int):
 
 def launch(mask, idx, total):
     """One launch of the kernel into preallocated idx (int64[cap]) and
-    total (int64, one element); counts nothing (chip_smoke.py times the
-    kernel alone with it)."""
-    global _fn
-    if _fn is None:
-        _fn = KB.library().ft_mask_indices
+    total (int64, one element), counted as `compact_launches`
+    (chip_smoke.py times the kernel alone with it)."""
     n = mask.shape[0]
     tiles = max(1, -(-(n + mask.data_ptr() % 16) // TILE))
     stream = KB.stream_of(mask)
     scratch, epoch = _epoch(mask.device, stream, tiles)
-    code = _fn(mask.data_ptr(), n, idx.data_ptr(), idx.shape[0],
-               total.data_ptr(), scratch.data_ptr(), scratch.shape[0] - 1,
-               epoch, stream)
-    if code:
-        # a launch that failed may leave the ticket counter set
-        del _scratch[(mask.device, stream)]
-        KB.check(code, "mask_indices")
+    KB.launch("mask_indices", "compact_launches", mask.data_ptr(), n,
+              idx.data_ptr(), idx.shape[0], total.data_ptr(),
+              scratch.data_ptr(), scratch.shape[0] - 1, epoch, stream,
+              # a launch that failed may leave the ticket counter set
+              on_fail=lambda: _scratch.pop((mask.device, stream)))
 
 
 def mask_indices(mask, cap: int):
     """Indices of the True lanes of bool[N] `mask`, first `cap` in lane
     order, and the total count (no host sync)."""
-    global launches
-    if not mask.is_cuda:
-        return mask_indices_plain(mask, cap)
-    KB.require_cuda("mask", mask, torch.bool)
+    if mask.dtype != torch.bool or mask.dim() != 1:
+        raise ValueError(f"mask: expected bool[N], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
     if cap < 0 or mask.shape[0] > MAX_LANES:
         raise ValueError(f"cap {cap}, {mask.shape[0]} lanes: need cap >= 0 "
                          f"and at most {MAX_LANES} lanes")
+    if not mask.is_cuda:
+        return mask_indices_plain(mask, cap)
+    KB.on_card(("mask", mask))
     out = torch.empty((cap + 1,), dtype=torch.int64, device=mask.device)
     idx, total = out[:cap], out[cap]
     launch(mask, idx, total)
-    launches += 1
     return idx, total

@@ -13,8 +13,12 @@ and adds the port's own records:
   `table_probe_rounds` (probe rounds issued from the host: the CPU's
   torch rounds; on the card a table upsert is one launch, counted in
   `upsert_launches`), `walk_rounds`, `walk_steps`, `node_keys` (lanes
-  handed to the branch-node cascade's insert), `spool_flushes` and the
-  kernels' launches (`wide_ext_launches`, `upsert_launches`).
+  handed to the branch-node cascade's insert), `spool_flushes` and
+  `<kernel>_launches` for each kernel entry, counted by kernels/build.py
+  `launch`: `probe`, `cascade` (and by the reference's variant,
+  `cascade_dense`, `cascade_sparse`, `cascade_multi_tile`),
+  `bloom_insert_codes`, `scatter_or_bits`, `compact`, `wide_ext` and
+  `upsert`.
 - `timers`: seconds per span path. `with m.span("scan"):` times a stretch
   of host code; spans nest on a per-thread stack and the timer key is the
   path of the enclosing spans' names joined by "/" (`build/pass1/walk/

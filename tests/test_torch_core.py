@@ -16,13 +16,13 @@ from faucet_tpu.core import slots as JS
 from faucet_tpu.core import table as JT
 from faucet_tpu.core import u32x2 as JU
 from faucet_tpu_torch.ckpt import state as CK
-from faucet_tpu_torch.core import bloom as TBL
 from faucet_tpu_torch.core import hashing as TH
 from faucet_tpu_torch.core import kmer as TK
 from faucet_tpu_torch.core import nodes as TND
 from faucet_tpu_torch.core import slots as TS
 from faucet_tpu_torch.core import table as TT
 from faucet_tpu_torch.core import u32x2 as TU
+from faucet_tpu_torch.kernels import probe as KP
 
 # the suite runs in several worker processes on few cores: one torch
 # thread each (tiny CPU tensors gain nothing from more)
@@ -93,13 +93,15 @@ def test_hashing(rng):
 
 
 def test_block_addressing(rng):
+    """kernels/probe.py block_address and block_bits, the one torch
+    spelling of the blocked layout, == the reference's addressing."""
     hi, lo = _words(rng, 3000, 30), _words(rng, 3000)
     for log2 in (16, 22):
-        for g, w in zip(TBL._block_h1r_h2(t(hi), t(lo), log2),
-                        JBL._block_h1r_h2(jnp.asarray(hi), jnp.asarray(lo),
-                                          log2)):
+        got = KP.block_address(*TH.hash_pair(t(hi), t(lo)), log2)
+        for g, w in zip(got, JBL._block_h1r_h2(jnp.asarray(hi),
+                                               jnp.asarray(lo), log2)):
             same(g, w)
-        for g, w in zip(TBL._block_and_bits(t(hi), t(lo), 7, log2),
+        for g, w in zip((got[0], KP.block_bits(got[1], got[2], 7)),
                         JBL._block_and_bits(jnp.asarray(hi),
                                             jnp.asarray(lo), 7, log2)):
             same(g, w)

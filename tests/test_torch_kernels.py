@@ -11,6 +11,7 @@ imported inside the `ref` fixture only, so the cuda tests run there with
   python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 (tests/conftest.py imports jax too).
 """
+import contextlib
 import types
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from faucet_tpu.config import Config as JConfig
+from faucet_tpu_torch import metrics as TM
 from faucet_tpu_torch.ckpt import state as CK
 from faucet_tpu_torch.config import Config as TConfig
 from faucet_tpu_torch.core import bloom as TBL
@@ -35,6 +37,23 @@ torch.set_num_threads(1)
 
 SENT = 0xFFFFFFFF
 JSENT = np.uint32(SENT)
+
+
+@contextlib.contextmanager
+def tallied():
+    """The tally of what the block counts outside spans of its own (a
+    Pipeline counts into its own Metrics): kernels/build.py counts each
+    launch there as `<kernel>_launches`."""
+    m = TM.Metrics()
+    with m.span("tallied"):
+        yield m.tally
+
+
+def launches(tally, kernel=None):
+    """Launches of `kernel` in a tally, or of every kernel."""
+    if kernel is not None:
+        return tally.get(f"{kernel}_launches", 0)
+    return sum(n for k, n in tally.items() if k.endswith("_launches"))
 
 
 @pytest.fixture(scope="module")
@@ -104,10 +123,11 @@ def test_probe_plain_matches_reference(ref, rng, log2_bits, n_keys,
                                                     block, JSENT),
                                 h1r, h2, n_hash, interpret=True))
     np.testing.assert_array_equal(want_k, want)
-    before = KP.launches
-    got = KP.bloom_contains_codes(tb.words, TU.u32(qhi), TU.u32(qlo),
-                                  torch.from_numpy(qmask), n_hash, log2_bits)
-    assert KP.launches == before  # CPU tensors take the plain version
+    with tallied() as tally:
+        got = KP.bloom_contains_codes(tb.words, TU.u32(qhi), TU.u32(qlo),
+                                      torch.from_numpy(qmask), n_hash,
+                                      log2_bits)
+    assert launches(tally) == 0  # CPU tensors take the plain version
     np.testing.assert_array_equal(got.numpy(), want)
     got = TBL.bloom_contains(tb, TU.u32(qhi), TU.u32(qlo),
                              torch.from_numpy(qmask), n_hash, log2_bits)
@@ -280,28 +300,25 @@ def test_cascade_plain_vs_tpu_kernel(ref, rng, la, lb, n, dup):
     assert (sk & ~st).mean() < 0.03
 
 
-def _launches():
-    return (KP.launches, KC.launches, KS.launches_keys, KS.launches_bits,
-            KCP.launches)
-
-
 def test_wrappers_take_plain_version_on_cpu():
     w = torch.zeros(32, dtype=torch.int32)
     k = torch.zeros(4, dtype=torch.int64)
-    # CPU tensors take the plain version and count no launch; the CUDA
-    # wrappers' checks are exercised on the card (the cuda tests below)
+    # CPU tensors take the plain version and count no launch; the
+    # arguments both versions need are checked on both devices
+    # (test_entries_refuse_malformed_arguments), the card's own checks on
+    # the card (the cuda tests below)
     m = torch.zeros(4, dtype=torch.bool)
-    before = _launches()
-    assert KP.bloom_contains_codes(w, k, k, ~m, 3, 10).sum() == 0
-    new_b, solid = KC.cascade_insert(w.clone(), w.clone(), k, k, m, 10, 10,
-                                     0, 3, 3)
-    assert not new_b.any() and not solid.any()
-    assert int(KS.bloom_insert_codes(w.clone(), k, k, m, 3, 10).abs().sum()) \
-        == 0
-    assert int(KS.scatter_or_bits(w.clone(), k + SENT).abs().sum()) == 0
-    idx, cnt = KCP.mask_indices(torch.zeros(4, dtype=torch.bool), 2)
-    assert idx.shape == (2,) and int(cnt) == 0
-    assert _launches() == before
+    with tallied() as tally:
+        assert KP.bloom_contains_codes(w, k, k, ~m, 3, 10).sum() == 0
+        new_b, solid = KC.cascade_insert(w.clone(), w.clone(), k, k, m, 10,
+                                         10, 0, 3, 3)
+        assert not new_b.any() and not solid.any()
+        assert int(KS.bloom_insert_codes(w.clone(), k, k, m, 3,
+                                         10).abs().sum()) == 0
+        assert int(KS.scatter_or_bits(w.clone(), k + SENT).abs().sum()) == 0
+        idx, cnt = KCP.mask_indices(torch.zeros(4, dtype=torch.bool), 2)
+        assert idx.shape == (2,) and int(cnt) == 0
+    assert launches(tally) == 0
 
 
 def _wide_windows(rng, k, B, L=100, device="cpu"):
@@ -319,13 +336,11 @@ def _wide_windows(rng, k, B, L=100, device="cpu"):
 
 
 def test_wide_ext_takes_plain_version_on_cpu_and_checks_arguments(rng):
-    from faucet_tpu_torch.core import wide as TW
-
     canon, other, _ = _wide_windows(rng, 55, 16)
-    before = KW.launches
-    got = KW.slot_ext_keys(canon, other, 55)
-    want = TW.slot_ext_keys_wide_plain(canon, other, 55)
-    assert KW.launches == before  # CPU tensors take the plain version
+    with tallied() as tally:
+        got = KW.slot_ext_keys(canon, other, 55)
+    want = KW.slot_ext_keys_plain(canon, other, 55)
+    assert launches(tally) == 0  # CPU tensors take the plain version
     for g, w in zip(got, want):
         assert g.shape == canon.shape[1:] + (8,) and torch.equal(g, w)
     bad = [(canon.to(torch.int32), other, 55),   # dtype
@@ -333,10 +348,11 @@ def test_wide_ext_takes_plain_version_on_cpu_and_checks_arguments(rng):
            (canon[:3], other[:3], 55),           # not four words
            (canon, other[:, :8], 55),            # shapes differ
            (canon, other, 31), (canon, other, 64)]   # k not wide
-    for args in bad:
-        with pytest.raises(ValueError):
-            KW.slot_ext_keys(*args)
-    assert KW.launches == before
+    with tallied() as tally:
+        for args in bad:
+            with pytest.raises(ValueError):
+                KW.slot_ext_keys(*args)
+    assert launches(tally) == 0
 
 
 # value arrays of the port's tables: (trailing shape, dtype, mode) of the
@@ -391,23 +407,27 @@ def _tables_equal(a, b):
 
 def test_upsert_takes_plain_version_on_cpu_and_checks_arguments(rng):
     """kernels/upsert.probe_rounds on CPU tensors is the torch rounds
-    (core/table.py probe_rounds_plain), counting no launch, and refuses
-    what the kernel does not take; core/table.py upsert runs in a span
-    `upsert` with its probe_round spans inside."""
-    from faucet_tpu_torch import metrics as TM
+    (probe_rounds_plain), counting no launch, and refuses what either
+    version does not take (contiguity is the card's own check: the torch
+    rounds take any layout); core/table.py upsert runs in a span `upsert`
+    with its probe_round spans inside."""
     from faucet_tpu_torch.core import table as TT
 
     tbl, (khi, klo, vals, mask), modes = _upsert_case(
         rng, 1 << 10, 600, JUNCTION_VALS + WORD_VALS, n_keys=300, fill=200)
     skhi, sklo, cvals, rep = TT._dedupe(khi, klo, vals, mask, modes)
-    before = KU.launches
-    got = KU.probe_rounds(_clone_table(tbl), skhi, sklo, cvals, rep, modes)
-    want = TT.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
+    with tallied() as tally:
+        got = KU.probe_rounds(_clone_table(tbl), skhi, sklo, cvals, rep,
+                              modes)
+    want = KU.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
                                  modes)
-    assert KU.launches == before
+    assert launches(tally) == 0
     _tables_equal(got, want)
     assert int(got.count) > int(tbl.count)
     c0, c1, c2 = cvals
+    _tables_equal(KU.probe_rounds(_clone_table(tbl), skhi, sklo,
+                                  (c0, c1.t().contiguous().t(), c2), rep,
+                                  modes), want)
     t3 = tbl._replace(vals=tbl.vals[:1] + (tbl.vals[0][:, :3].contiguous(),)
                       + tbl.vals[2:])
     bad = [
@@ -416,18 +436,17 @@ def test_upsert_takes_plain_version_on_cpu_and_checks_arguments(rng):
         (tbl, skhi, sklo, cvals, rep.to(torch.uint8), modes),
         (t3, skhi, sklo, (c0, c1[:, :3].contiguous(), c2), rep, modes),
         (tbl, skhi, sklo, cvals, rep, ("add", "min", "max")),     # mode
-        (tbl, skhi, sklo, (c0, c1.t().contiguous().t(), c2), rep,
-         modes),                                                  # layout
         (tbl, skhi, sklo, (c0, c1.to("meta"), c2), rep, modes),   # device
         (tbl, skhi, sklo, cvals[:2], rep, modes),                 # count
         (tbl._replace(vals=tbl.vals + tbl.vals[:1]), skhi, sklo,
          cvals + cvals[:1], rep, modes + ("add",)),               # four
         (tbl, skhi[:-1], sklo, cvals, rep, modes),                # shape
     ]
-    for args in bad:
-        with pytest.raises(ValueError):
-            KU.probe_rounds(*args)
-    assert KU.launches == before
+    with tallied() as tally:
+        for args in bad:
+            with pytest.raises(ValueError):
+                KU.probe_rounds(*args)
+    assert launches(tally) == 0
     m = TM.Metrics()
     with m.span("outer"):
         TT.upsert(_clone_table(tbl), khi, klo, vals, mask, modes)
@@ -483,11 +502,11 @@ def test_bloom_insert_codes_plain_matches_reference(ref, rng, shard_bits,
     want = np.asarray(JBL.bloom_insert(
         JBL.Bloom(jnp.asarray(words)), jnp.asarray(hi), jnp.asarray(lo),
         jnp.asarray(mask), n_hash, log2_bits, shard_bits).words)
-    before = KS.launches_keys
-    got = KS.bloom_insert_codes(CK.words_from_numpy(words), TU.u32(hi),
-                                TU.u32(lo), torch.from_numpy(mask), n_hash,
-                                log2_bits, shard_bits)
-    assert KS.launches_keys == before  # CPU tensors take the plain version
+    with tallied() as tally:
+        got = KS.bloom_insert_codes(CK.words_from_numpy(words), TU.u32(hi),
+                                    TU.u32(lo), torch.from_numpy(mask),
+                                    n_hash, log2_bits, shard_bits)
+    assert launches(tally) == 0  # CPU tensors take the plain version
     np.testing.assert_array_equal(CK.words_to_numpy(got), want)
     assert (want != words).any()
 
@@ -528,6 +547,122 @@ def test_mask_indices_plain_vs_tpu_kernel(ref, rng, density, cap):
     assert got.shape == (cap,) and got.dtype == torch.int64
 
 
+def _entry_args(dev="cpu"):
+    """Well-formed arguments of each kernel entry on `dev`: a filter of
+    2**10 bits probed with 3 bits, 64 codes, their mask; a table of 2**6
+    slots and a deduplicated batch of its 64 codes; wide windows."""
+    from faucet_tpu_torch.core import table as TT
+
+    g = torch.Generator().manual_seed(5)
+    k64 = lambda *shape: torch.randint(0, 1 << 30, shape, generator=g,
+                                       dtype=torch.int64).to(dev)
+    words = torch.zeros(32, dtype=torch.int32, device=dev)
+    mask = (torch.rand(64, generator=g) < 0.5).to(dev)
+    tbl = TT.make(1 << 6, (((), torch.int32),), device=dev)
+    cv = torch.ones(64, dtype=torch.int32, device=dev)
+    return types.SimpleNamespace(
+        words=words, khi=k64(64), klo=k64(64), mask=mask, tbl=tbl, cv=cv,
+        canon=k64(4, 8, 5), other=k64(4, 8, 5))
+
+
+# (entry, what is malformed, the call): each must raise ValueError on
+# the CPU as on the card, before either version runs
+REFUSALS = (
+    ("probe", "filter size", lambda a: KP.bloom_contains_codes(
+        a.words, a.khi, a.klo, a.mask, 3, 11)),
+    ("probe", "filter dtype", lambda a: KP.bloom_contains_codes(
+        a.words.long(), a.khi, a.klo, a.mask, 3, 10)),
+    ("probe", "n_hash", lambda a: KP.bloom_contains_codes(
+        a.words, a.khi, a.klo, a.mask, 17, 10)),
+    ("probe", "shard_bits", lambda a: KP.bloom_contains_codes(
+        a.words, a.khi, a.klo, a.mask, 3, 10, 2)),
+    ("probe", "code dtype", lambda a: KP.bloom_contains_codes(
+        a.words, a.khi.int(), a.klo, a.mask, 3, 10)),
+    ("probe", "code shapes", lambda a: KP.bloom_contains_codes(
+        a.words, a.khi, a.klo[:-1], a.mask, 3, 10)),
+    ("probe", "mask dtype", lambda a: KP.bloom_contains_codes(
+        a.words, a.khi, a.klo, a.mask.to(torch.uint8), 3, 10)),
+    ("cascade", "filter A size", lambda a: KC.cascade_insert(
+        a.words, a.words.clone(), a.khi, a.klo, a.mask, 11, 10, 0, 3, 3)),
+    ("cascade", "filter B dtype", lambda a: KC.cascade_insert(
+        a.words, a.words.long(), a.khi, a.klo, a.mask, 10, 10, 0, 3, 3)),
+    ("cascade", "n_hash", lambda a: KC.cascade_insert(
+        a.words, a.words.clone(), a.khi, a.klo, a.mask, 10, 10, 0, 3, 0)),
+    ("cascade", "mask shape", lambda a: KC.cascade_insert(
+        a.words, a.words.clone(), a.khi, a.klo, a.mask[:-1], 10, 10, 0, 3,
+        3)),
+    ("cascade", "codes not 1-D", lambda a: KC.cascade_insert(
+        a.words, a.words.clone(), a.khi.view(8, 8), a.klo.view(8, 8),
+        a.mask.view(8, 8), 10, 10, 0, 3, 3)),
+    ("bloom_insert_codes", "filter size", lambda a: KS.bloom_insert_codes(
+        a.words, a.khi, a.klo, a.mask, 3, 9)),
+    ("bloom_insert_codes", "n_hash", lambda a: KS.bloom_insert_codes(
+        a.words, a.khi, a.klo, a.mask, 0, 10)),
+    ("bloom_insert_codes", "code dtype", lambda a: KS.bloom_insert_codes(
+        a.words, a.khi, a.klo.int(), a.mask, 3, 10)),
+    ("bloom_insert_codes", "mask shape", lambda a: KS.bloom_insert_codes(
+        a.words, a.khi, a.klo, a.mask[:-1], 3, 10)),
+    ("scatter_or_bits", "position dtype", lambda a: KS.scatter_or_bits(
+        a.words, a.khi.int())),
+    ("scatter_or_bits", "positions not 1-D", lambda a: KS.scatter_or_bits(
+        a.words, a.khi.view(8, 8))),
+    ("scatter_or_bits", "filter dtype", lambda a: KS.scatter_or_bits(
+        a.words.long(), a.khi)),
+    ("mask_indices", "mask dtype", lambda a: KCP.mask_indices(
+        a.mask.to(torch.uint8), 8)),
+    ("mask_indices", "mask not 1-D", lambda a: KCP.mask_indices(
+        a.mask.view(8, 8), 8)),
+    ("mask_indices", "cap", lambda a: KCP.mask_indices(a.mask, -1)),
+    ("slot_ext_keys", "k", lambda a: KW.slot_ext_keys(
+        a.canon, a.other, 31)),
+    ("slot_ext_keys", "words", lambda a: KW.slot_ext_keys(
+        a.canon[:3], a.other[:3], 55)),
+    ("slot_ext_keys", "shapes", lambda a: KW.slot_ext_keys(
+        a.canon, a.other[:, :4], 55)),
+    ("probe_rounds", "mode", lambda a: KU.probe_rounds(
+        a.tbl, a.khi, a.klo, (a.cv,), a.mask, ("min",))),
+    ("probe_rounds", "value dtype", lambda a: KU.probe_rounds(
+        a.tbl, a.khi, a.klo, (a.cv.long(),), a.mask, ("add",))),
+    ("probe_rounds", "count dtype", lambda a: KU.probe_rounds(
+        a.tbl._replace(count=a.tbl.count.int()), a.khi, a.klo, (a.cv,),
+        a.mask, ("add",))),
+    ("probe_rounds", "max_rounds", lambda a: KU.probe_rounds(
+        a.tbl, a.khi, a.klo, (a.cv,), a.mask, ("add",), -1)),
+)
+
+
+@pytest.mark.parametrize("entry,what,call", REFUSALS,
+                         ids=[f"{e}-{w}" for e, w, _ in REFUSALS])
+def test_entries_refuse_malformed_arguments(entry, what, call):
+    """Each kernel entry checks what both of its versions need on both
+    devices (kernels/build.py): a malformed argument raises ValueError on
+    CPU tensors too, and nothing is counted or written."""
+    a = _entry_args()
+    before = [t.clone() for t in (a.words, a.tbl.keys_hi)]
+    with tallied() as tally:
+        with pytest.raises(ValueError):
+            call(a)
+    assert launches(tally) == 0
+    assert all(torch.equal(x, y) for x, y in zip(before,
+                                                 (a.words, a.tbl.keys_hi)))
+
+
+def test_entries_take_well_formed_arguments():
+    """The arguments REFUSALS breaks, unbroken, run each entry's plain
+    version."""
+    a = _entry_args()
+    assert KP.bloom_contains_codes(a.words, a.khi, a.klo, a.mask, 3,
+                                   10).shape == a.khi.shape
+    KC.cascade_insert(a.words, a.words.clone(), a.khi, a.klo, a.mask, 10,
+                      10, 0, 3, 3)
+    KS.bloom_insert_codes(a.words.clone(), a.khi, a.klo, a.mask, 3, 10)
+    KS.scatter_or_bits(a.words.clone(), a.khi)
+    assert KCP.mask_indices(a.mask, 8)[0].shape == (8,)
+    assert KW.slot_ext_keys(a.canon, a.other, 55)[0].shape == (8, 5, 8)
+    t = KU.probe_rounds(a.tbl, a.khi, a.klo, (a.cv,), a.mask, ("add",))
+    assert int(t.count) > 0
+
+
 # ---- on the card -----------------------------------------------------------
 
 
@@ -545,12 +680,13 @@ def test_kernels_on_card(cuda, n_hash_a):
     cg, cp = TBL.make_cascade(cfg, cuda), TBL.make_cascade(cfg)
     for mask in (rng.random(n) < 0.95, rng.random(n) < 0.95,
                  rng.random(n) < 0.03):
-        kl = (KC.launches, KP.launches)
-        _, nb_g, sol_g = TBL.cascade_insert_nbs(
-            cg, TU.u32(hi).to(cuda), TU.u32(lo).to(cuda),
-            torch.from_numpy(mask).to(cuda), cfg)
+        with tallied() as tally:
+            _, nb_g, sol_g = TBL.cascade_insert_nbs(
+                cg, TU.u32(hi).to(cuda), TU.u32(lo).to(cuda),
+                torch.from_numpy(mask).to(cuda), cfg)
         torch.cuda.synchronize()
-        assert (KC.launches, KP.launches) == (kl[0] + 1, kl[1])
+        assert (launches(tally, "cascade"), launches(tally, "probe")) == \
+            (1, 0)
         _, nb_p, sol_p = TBL.cascade_insert_nbs(
             cp, TU.u32(hi), TU.u32(lo), torch.from_numpy(mask), cfg)
         assert torch.equal(cg.a_bloom.words.cpu(), cp.a_bloom.words)
@@ -560,12 +696,12 @@ def test_kernels_on_card(cuda, n_hash_a):
         hi, lo = hi[::-1].copy(), lo[::-1].copy()
     qhi, qlo = _keys(rng, n)
     qmask = rng.random(n) < 0.9
-    before = KP.launches
-    g = TBL.bloom_contains(cg.b_bloom, TU.u32(qhi).to(cuda),
-                           TU.u32(qlo).to(cuda),
-                           torch.from_numpy(qmask).to(cuda), 3, 20)
+    with tallied() as tally:
+        g = TBL.bloom_contains(cg.b_bloom, TU.u32(qhi).to(cuda),
+                               TU.u32(qlo).to(cuda),
+                               torch.from_numpy(qmask).to(cuda), 3, 20)
     torch.cuda.synchronize()
-    assert KP.launches == before + 1
+    assert launches(tally, "probe") == 1
     p = TBL.bloom_contains(cp.b_bloom, TU.u32(qhi), TU.u32(qlo),
                            torch.from_numpy(qmask), 3, 20)
     assert torch.equal(g.cpu(), p)
@@ -583,12 +719,12 @@ def test_contains_codes_on_card(cuda, n, shard_bits):
     hi, lo = _keys(rng, 4 * n)
     khi, klo = TU.u32(hi, cuda).view(4, n), TU.u32(lo, cuda).view(4, n)
     m = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
-    before = KP.launches
-    got = KP.bloom_contains_codes(words, khi, klo, m, 3, 25, shard_bits)
-    want = KP.bloom_contains_codes_plain(words, khi, klo, m, 3, 25,
-                                         shard_bits)
+    with tallied() as tally:
+        got = KP.bloom_contains_codes(words, khi, klo, m, 3, 25, shard_bits)
+        want = KP.bloom_contains_codes_plain(words, khi, klo, m, 3, 25,
+                                             shard_bits)
     torch.cuda.synchronize()
-    assert KP.launches == before + 1
+    assert launches(tally) == launches(tally, "probe") == 1
     assert torch.equal(got, want) and bool(want.any()) and \
         not bool(want.all())
     with pytest.raises(ValueError):
@@ -614,11 +750,11 @@ def test_cascade_insert_on_card(cuda, case):
     for _ in range(2):
         args = (TU.u32(hi, cuda), TU.u32(lo, cuda),
                 torch.from_numpy(mask).to(cuda), la, lb, 0, 4, 3)
-        before = KC.launches
-        nb, sol = KC.cascade_insert(a, b, *args)
-        nbp, solp = KC.cascade_insert_plain(ap, bp, *args)
+        with tallied() as tally:
+            nb, sol = KC.cascade_insert(a, b, *args)
+            nbp, solp = KC.cascade_insert_plain(ap, bp, *args)
         torch.cuda.synchronize()
-        assert KC.launches == before + 1
+        assert launches(tally, "cascade") == 1
         assert torch.equal(a, ap) and torch.equal(b, bp)
         assert torch.equal(nb, nbp) and torch.equal(sol, solp)
         new_b.append(bool(nb.any()))
@@ -657,12 +793,13 @@ def test_cascade_variant_counts_on_card(cuda, la, lb, sparse, variant):
     hi, lo, mask = _cascade_batch(rng, 4096, "dense")
     a = torch.zeros((1 << (la - 5),), dtype=torch.int32, device=cuda)
     b = torch.zeros((1 << (lb - 5),), dtype=torch.int32, device=cuda)
-    before, counts = KC.launches, dict(KC.variant_launches)
-    KC.cascade_insert(a, b, TU.u32(hi, cuda), TU.u32(lo, cuda),
-                      torch.from_numpy(mask).to(cuda), la, lb, 0, 4, 3,
-                      sparse=sparse)
-    counts[variant] += 1
-    assert KC.launches == before + 1 and KC.variant_launches == counts
+    with tallied() as tally:
+        KC.cascade_insert(a, b, TU.u32(hi, cuda), TU.u32(lo, cuda),
+                          torch.from_numpy(mask).to(cuda), la, lb, 0, 4, 3,
+                          sparse=sparse)
+    assert launches(tally, "cascade") == 1
+    assert {v: launches(tally, f"cascade_{v}") for v in KC.VARIANTS} == {
+        v: int(v == variant) for v in KC.VARIANTS}
 
 
 @pytest.mark.cuda
@@ -682,20 +819,20 @@ def test_scatter_kernels_on_card(cuda, log2_bits, n_hash):
             torch.from_numpy(rng.random(n) < 0.9).to(cuda), n_hash,
             log2_bits)
     for _ in range(2):
-        before = KS.launches_keys
-        got = KS.bloom_insert_codes(words.clone(), *args)
-        want = KS.bloom_insert_codes_plain(words.clone(), *args)
+        with tallied() as tally:
+            got = KS.bloom_insert_codes(words.clone(), *args)
+            want = KS.bloom_insert_codes_plain(words.clone(), *args)
         torch.cuda.synchronize()
-        assert KS.launches_keys == before + 1
+        assert launches(tally) == launches(tally, "bloom_insert_codes") == 1
         assert torch.equal(got, want)
         words = got
     pos = TU.u32(rng.integers(0, W * 32, 4 * n), cuda)
     pos[::7] = SENT
-    before = KS.launches_bits
-    got = KS.scatter_or_bits(words.clone(), pos)
-    want = KS.scatter_or_bits_plain(words.clone(), pos)
+    with tallied() as tally:
+        got = KS.scatter_or_bits(words.clone(), pos)
+        want = KS.scatter_or_bits_plain(words.clone(), pos)
     torch.cuda.synchronize()
-    assert KS.launches_bits == before + 1
+    assert launches(tally) == launches(tally, "scatter_or_bits") == 1
     assert torch.equal(got, want)
     bg, bc = TBL.make_bloom(log2_bits, cuda), TBL.make_bloom(log2_bits)
     TBL.bloom_insert(bg, *args)
@@ -721,11 +858,11 @@ def test_mask_indices_on_card(cuda, n, density, cap):
     rng = np.random.default_rng(n + int(density * 1000))
     base = torch.from_numpy(rng.random(n + 5) < density).to(cuda)
     for mask in (base[:n], base[5:]):
-        before = KCP.launches
-        idx, cnt = KCP.mask_indices(mask, cap)
-        pidx, pcnt = KCP.mask_indices_plain(mask, cap)
+        with tallied() as tally:
+            idx, cnt = KCP.mask_indices(mask, cap)
+            pidx, pcnt = KCP.mask_indices_plain(mask, cap)
         torch.cuda.synchronize()
-        assert KCP.launches == before + 1
+        assert launches(tally) == launches(tally, "compact") == 1
         assert idx.shape == (cap,)
         assert int(cnt) == int(pcnt) == int(mask.sum())
         m = min(int(cnt), cap)
@@ -759,8 +896,9 @@ def _scan_on_both(fn):
     counting compaction launches."""
     out = []
     for dev in ("cpu", torch.device("cuda")):
-        before = KCP.launches
-        out.append((fn(dev), KCP.launches - before))
+        with tallied() as tally:
+            r = fn(dev)
+        out.append((r, launches(tally, "compact")))
     return out
 
 
@@ -861,11 +999,11 @@ def test_scatter_or_bits_cases_on_card(cuda, case, offset):
     buf = TU.u32(np.concatenate([rng.integers(0, W * 32, offset),
                                  _b6_case(rng, case, W)]), cuda)
     pos = buf[offset:]
-    before = KS.launches_bits
-    got = KS.scatter_or_bits(words.clone(), pos)
-    want = KS.scatter_or_bits_plain(words.clone(), pos)
+    with tallied() as tally:
+        got = KS.scatter_or_bits(words.clone(), pos)
+        want = KS.scatter_or_bits_plain(words.clone(), pos)
     torch.cuda.synchronize()
-    assert KS.launches_bits == before + (1 if pos.numel() else 0)
+    assert launches(tally, "scatter_or_bits") == (1 if pos.numel() else 0)
     assert torch.equal(got, want)
 
 
@@ -876,18 +1014,16 @@ def test_wide_ext_on_card(cuda, k):
     word boundaries (k = 47, 48, 49), the top bit at word 0 (k = 63),
     2k = 96 (k = 48); both canonical frames and invalid windows occur. At
     k = 55 the stream cell's 8,192 x 46 windows."""
-    from faucet_tpu_torch.core import wide as TW
-
     rng = np.random.default_rng(1300 + k)
     canon, other, wv = _wide_windows(rng, k, 8192 if k == 55 else 1024,
                                      device=cuda)
     cisf, valid = wv.canon_is_fwd, wv.valid
     assert cisf.any() and (~cisf).any() and valid.any() and (~valid).any()
-    before = KW.launches
-    got = KW.slot_ext_keys(canon, other, k)
+    with tallied() as tally:
+        got = KW.slot_ext_keys(canon, other, k)
     torch.cuda.synchronize()
-    assert KW.launches == before + 1
-    want = TW.slot_ext_keys_wide_plain(canon, other, k)
+    assert launches(tally) == launches(tally, "wide_ext") == 1
+    want = KW.slot_ext_keys_plain(canon, other, k)
     for g, w in zip(got, want):
         assert g.shape == w.shape == canon.shape[1:] + (8,)
         assert torch.equal(g, w)
@@ -967,20 +1103,20 @@ def test_upsert_kernel_on_card(cuda, case):
     tbl, (khi, klo, vals, mask), modes = _upsert_case(
         rng, cap, n, specs, n_keys=n_keys, fill=fill, device=cuda)
     skhi, sklo, cvals, rep = TT._dedupe(khi, klo, vals, mask, modes)
-    want = TT.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
+    want = KU.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
                                  modes, rounds, sb)
-    before = KU.launches
-    got = KU.probe_rounds(_clone_table(tbl), skhi, sklo, cvals, rep.clone(),
-                          modes, rounds, sb)
+    with tallied() as tally:
+        got = KU.probe_rounds(_clone_table(tbl), skhi, sklo, cvals,
+                              rep.clone(), modes, rounds, sb)
     torch.cuda.synchronize()
-    assert KU.launches == before + 1
+    assert launches(tally) == launches(tally, "upsert") == 1
     _tables_equal(got, want)
     assert int(want.count) > int(tbl.count) or n < 600
     assert (int(want.dropped) > int(tbl.dropped)) == (name == "overflow")
     # twice over: the second call only matches (nothing new, values grow)
     again = KU.probe_rounds(got, skhi, sklo, cvals, rep.clone(), modes,
                             rounds, sb)
-    want2 = TT.probe_rounds_plain(want, skhi, sklo, cvals, rep, modes,
+    want2 = KU.probe_rounds_plain(want, skhi, sklo, cvals, rep, modes,
                                   rounds, sb)
     torch.cuda.synchronize()
     _tables_equal(again, want2)
@@ -991,19 +1127,17 @@ def test_upsert_one_launch_and_no_rounds_on_card(cuda):
     """On the card core/table.py upsert is one kernel launch, counted in
     upsert_launches, inside its span `upsert`: no probe_round span, no
     host read."""
-    from faucet_tpu_torch import metrics as TM
     from faucet_tpu_torch.core import table as TT
 
     rng = np.random.default_rng(15)
     tbl, (khi, klo, vals, mask), modes = _upsert_case(
         rng, 1 << 14, 8192, JUNCTION_VALS, device=cuda)
     m = TM.Metrics()
-    before = KU.launches
     with m.span("outer"):
         for _ in range(3):
             tbl = TT.upsert(tbl, khi, klo, vals, mask, modes)
     torch.cuda.synchronize()
-    assert KU.launches - before == m.tally["upsert_launches"] == 3
+    assert launches(m.tally) == m.tally["upsert_launches"] == 3
     assert "outer/upsert" in m.timers
     assert not any(k.endswith("probe_round") for k in m.timers)
     assert "table_probe_rounds" not in m.tally
@@ -1033,14 +1167,15 @@ def test_stream_step_cpu_equals_cuda(cuda, k):
     out = []
     for dev in ("cpu", cuda):
         p = Pipeline(cfg, device=dev)
-        before = KU.launches
-        for bases, lens in batches:
-            p.stream_step(bases, lens)
-        p.flush_junctions()
+        with tallied() as tally:
+            for bases, lens in batches:
+                p.stream_step(bases, lens)
+            p.flush_junctions()
         if dev != "cpu":
             torch.cuda.synchronize()
         out.append(([CK.table_to_numpy(t) for t in (p.junctions, p.sinks)],
-                    KU.launches - before))
+                    launches(tally, "upsert")
+                    + launches(p.metrics.tally, "upsert")))
     (ta, na), (tb, nb) = out
     assert na == 0 and nb >= len(batches)
     for x, y in zip(ta, tb):
@@ -1075,12 +1210,12 @@ def test_exact_and_prune_cpu_equals_cuda(cuda, k, kw):
                   fp_rate=0.002, **kw)
     out = []
     for dev in ("cpu", cuda):
-        before = (KP.launches, KC.launches, KCP.launches)
         p = Pipeline(cfg, device=dev)
-        g = p.run_file_mode(reads, reads)
+        with tallied() as tally:
+            g = p.run_file_mode(reads, reads)
         torch.cuda.synchronize()
-        n = [b - a for a, b in zip(before, (KP.launches, KC.launches,
-                                            KCP.launches))]
+        n = [launches(tally, x) + launches(p.metrics.tally, x)
+             for x in ("probe", "cascade", "compact")]
         tables = [p.junctions, p.sinks]
         if cfg.exact:
             tables += [p.cascade.a_table, p.cascade.b_table]
@@ -1097,3 +1232,44 @@ def test_exact_and_prune_cpu_equals_cuda(cuda, k, kw):
             np.testing.assert_array_equal(x[f], y[f])
         for u, v in zip(x["vals"], y["vals"]):
             np.testing.assert_array_equal(u, v)
+
+
+# (entry, what only the card refuses, the call on CUDA arguments)
+CARD_REFUSALS = (
+    ("probe", "filter off the 16-byte grid",
+     lambda a: KP.bloom_contains_codes(
+         torch.zeros(36, dtype=torch.int32, device=a.words.device)[1:33],
+         a.khi, a.klo, a.mask, 3, 10)),
+    ("probe", "codes on the CPU", lambda a: KP.bloom_contains_codes(
+        a.words, a.khi.cpu(), a.klo.cpu(), a.mask, 3, 10)),
+    ("cascade", "codes not contiguous", lambda a: KC.cascade_insert(
+        a.words, a.words.clone(), a.khi[::2], a.klo[::2], a.mask[::2], 10,
+        10, 0, 3, 3)),
+    ("bloom_insert_codes", "filter off the 16-byte grid",
+     lambda a: KS.bloom_insert_codes(
+         torch.zeros(36, dtype=torch.int32, device=a.words.device)[2:34],
+         a.khi, a.klo, a.mask, 3, 10)),
+    ("scatter_or_bits", "positions not contiguous",
+     lambda a: KS.scatter_or_bits(a.words, a.khi[::2])),
+    ("mask_indices", "mask not contiguous", lambda a: KCP.mask_indices(
+        a.mask[::2], 8)),
+    ("probe_rounds", "values not contiguous", lambda a: KU.probe_rounds(
+        a.tbl._replace(vals=(torch.zeros((65, 2), dtype=torch.int32,
+                                         device=a.cv.device)[:, 0],)),
+        a.khi, a.klo, (a.cv,), a.mask, ("add",))),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,what,call", CARD_REFUSALS,
+                         ids=[f"{e}-{w}" for e, w, _ in CARD_REFUSALS])
+def test_entries_refuse_on_card(cuda, entry, what, call):
+    """What only the card needs (kernels/build.py on_card: one CUDA
+    device, contiguity, a 16-byte aligned filter) is refused before a
+    launch, and nothing is counted."""
+    a = _entry_args(cuda)
+    with tallied() as tally:
+        with pytest.raises(ValueError):
+            call(a)
+    torch.cuda.synchronize()
+    assert launches(tally) == 0

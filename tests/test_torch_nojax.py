@@ -10,6 +10,7 @@ same finder at their start, and each reports that the packages are
 blocked and were never imported. A scan of the sources (dist/ included)
 rejects import lines of either.
 """
+import ast
 import dataclasses
 import os
 import re
@@ -160,6 +161,87 @@ def test_no_jax_or_faucet_tpu_import_in_sources():
             if _BANNED.match(line.strip()):
                 hits.append(f"{p}:{i}")
     assert len(paths) >= 20 and not hits, hits
+
+
+# what kernels/ may import from core/: the word arithmetic, the hashing
+# and the wide codes (the plain versions' building blocks)
+_KERNELS_FROM_CORE = ("u32x2", "hashing", "wide")
+
+
+def _boundary_breaks(rel: str, source: str) -> list:
+    """Imports of a source (its path `rel` under faucet_tpu_torch/) that
+    break the one-way boundary: kernels/ importing from core/ other than
+    _KERNELS_FROM_CORE, and any import between core/ and kernels/ inside
+    a function."""
+    pkg = rel.split("/")[0]
+    other = {"core": "kernels", "kernels": "core"}.get(pkg)
+    if other is None:
+        return []
+    here = ["faucet_tpu_torch"] + rel.split("/")[:-1]
+    breaks = []
+
+    def visit(node, in_fn):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            if isinstance(node, ast.Import):
+                targets = [a.name for a in node.names]
+            else:
+                base = node.module or ""
+                if node.level:
+                    up = here[:len(here) - node.level + 1]
+                    base = ".".join(up + ([base] if base else []))
+                targets = [f"{base}.{a.name}" for a in node.names]
+            for t in targets:
+                parts = t.split(".")
+                if parts[:2] != ["faucet_tpu_torch", other]:
+                    continue
+                if in_fn:
+                    breaks.append(f"{rel}:{node.lineno} {t} in a function")
+                elif pkg == "kernels" and (
+                        len(parts) < 3 or parts[2] not in _KERNELS_FROM_CORE):
+                    breaks.append(f"{rel}:{node.lineno} {t}")
+        in_fn = in_fn or isinstance(node, (ast.FunctionDef,
+                                           ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, in_fn)
+
+    visit(ast.parse(source), False)
+    return breaks
+
+
+def test_core_and_kernels_import_one_way():
+    """kernels/ imports from core/ only u32x2, hashing and wide, at module
+    top; no function-level import crosses between core/ and kernels/
+    either way (each plain version lives beside its kernel)."""
+    pkg = os.path.join(_REPO, "faucet_tpu_torch")
+    seen, breaks = {"core": 0, "kernels": 0}, []
+    for sub in seen:
+        for f in sorted(os.listdir(os.path.join(pkg, sub))):
+            if f.endswith(".py"):
+                seen[sub] += 1
+                breaks += _boundary_breaks(
+                    f"{sub}/{f}", open(os.path.join(pkg, sub, f)).read())
+    assert seen["core"] >= 9 and seen["kernels"] >= 7 and not breaks, breaks
+
+
+@pytest.mark.parametrize("rel,source", [
+    ("kernels/x.py", "from faucet_tpu_torch.core import table as T\n"),
+    ("kernels/x.py", "from faucet_tpu_torch.core.scan import f\n"),
+    ("kernels/x.py", "import faucet_tpu_torch.core.bloom\n"),
+    ("kernels/x.py", "from faucet_tpu_torch import core\n"),
+    ("kernels/x.py", "from ..core import kmer\n"),
+    ("kernels/x.py", "def f():\n    from faucet_tpu_torch.core import wide\n"),
+    ("core/x.py",
+     "def f():\n    from faucet_tpu_torch.kernels import probe\n"),
+    ("core/x.py", "g = lambda: __import__('os')\n"
+                  "def f():\n    import faucet_tpu_torch.kernels.upsert\n"),
+])
+def test_import_boundary_check_catches(rel, source):
+    """The boundary check above flags each kind of break it is for, and
+    passes the allowed form beside it."""
+    assert len(_boundary_breaks(rel, source)) == 1
+    assert not _boundary_breaks(
+        rel, "from faucet_tpu_torch.core import u32x2\n"
+             "from faucet_tpu_torch.kernels import probe\n")
 
 
 _CFG_CASES = [

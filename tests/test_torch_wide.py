@@ -33,6 +33,7 @@ from faucet_tpu_torch.core import scan as TSC
 from faucet_tpu_torch.core import u32x2 as TU
 from faucet_tpu_torch.core import wide as TW
 from faucet_tpu_torch.graph import walk as TWK
+from faucet_tpu_torch.kernels import wide_ext as KW
 from faucet_tpu_torch.pipeline import Pipeline as TPipeline
 
 # the suite runs in several worker processes on few cores: one torch
@@ -77,9 +78,10 @@ def _eq(got: torch.Tensor, want):
 
 @pytest.mark.parametrize("k", [41, 55])
 def test_wide_codes_and_fingerprints(rng, k):
-    """kmerize_wide (every field), fingerprint and slot_ext_keys_wide, on
-    reads with N bases and short reads; at k = 55 some canonical words
-    have their top bit set (as int32 they would be negative)."""
+    """kmerize_wide (every field), fingerprint and the extension keys
+    (kernels/wide_ext.py slot_ext_keys), on reads with N bases and short
+    reads; at k = 55 some canonical words have their top bit set (as
+    int32 they would be negative)."""
     seqs = ["".join(rng.choice(list("ACGTN" if i % 7 == 0 else "ACGT"),
                                size=int(rng.integers(k - 5, 100))))
             for i in range(40)]
@@ -100,7 +102,7 @@ def test_wide_codes_and_fingerprints(rng, k):
     _eq(tl, jl)
     jo = JW.wselect(jv.canon_is_fwd, jv.rc, jv.fwd)
     to = TW.wselect(tv.canon_is_fwd, tv.rc, tv.fwd)
-    for got, want in zip(TW.slot_ext_keys_wide(tv.canon, to, k),
+    for got, want in zip(KW.slot_ext_keys(tv.canon, to, k),
                          JW.slot_ext_keys_wide(jv.canon, jo, k)):
         _eq(got, want)
 
