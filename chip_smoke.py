@@ -24,8 +24,8 @@ Phases (each prints its seconds; any failure raises and exits non-zero):
               B1, B2-B4 and B7 also at the k = 55 path's shapes; B6 also
               on unaligned, short and past-the-end inputs; the wide
               scan's extension keys (csrc/wide_ext.cu) at 8,192 x 46; the
-              hash table's probe rounds (csrc/table_upsert.cu) at a
-              k = 55 stream batch's sink and junction calls
+              hash table's updates (csrc/table_upsert.cu) at a k = 55
+              stream batch's sink and junction updates
   3b entries  the scatter-OR kernels' entry points (no caller on the main
               path), core/bloom.bloom_insert and scatter_or_bits: timed,
               then driven and counted, CUDA == CPU; they use only the API
@@ -970,62 +970,86 @@ UPSERT_CASES = (
 )
 
 
-def check_upsert(dev, n: int = 8192, reps: int = 20):
-    """The hash table's probe rounds (kernels/upsert.py probe_rounds,
-    csrc/table_upsert.cu, no Pallas counterpart) against the torch rounds
-    (probe_rounds_plain beside it) at a k = 55 stream batch's sink and
-    junction calls: 8,192 lanes (the scan's K), half of them keys the
-    table holds, into the cell's tables filled to about a dataset's end.
-    Bit-identical rows [:cap], count and dropped; the wrapper, the kernel
-    alone and the plain rounds timed on fresh batches; the bound from the
-    bytes the call needs at the rounds the plain version ran. Wrapper
-    and kernel alone are one call: the kernel alone is the wrapper timed
-    behind a device sleep, which hides its host part."""
+def check_upsert(dev, live: int = 12_000, reps: int = 20):
+    """A k = 55 stream batch's table updates (kernels/upsert.py
+    upsert_lanes, csrc/table_upsert.cu, no Pallas counterpart) against its
+    plain version (per K-lane chunk: the gathers, the junction rows,
+    dedupe and the torch rounds) on the same CUDA inputs: a scan grid of
+    8,192 x 46 windows with `live` update lanes (two K = 8,192 chunks),
+    listed by the compaction, half their keys held by the table, a tenth
+    of them repeated, into the cell's tables filled to about a dataset's
+    end. Bit-identical rows [:cap], count and dropped; the wrapper, the
+    kernel alone and the plain version timed on fresh grids; the bound
+    from the bytes the rounds need at the rounds the plain version ran.
+    Wrapper and kernel alone are one call: the kernel alone is the
+    wrapper timed behind a device sleep, which hides its host part."""
     import torch
 
     KU = _kernel_module("upsert")
-    if KU is None:
-        log("kernels/upsert.py: not in this tree")
+    if KU is None or not hasattr(KU, "upsert_lanes"):
+        log("kernels/upsert.py upsert_lanes: not in this tree")
         return {}
     from faucet_tpu_torch import metrics as TM
+    from faucet_tpu_torch.core import scan as SC
     from faucet_tpu_torch.core import table as TT
+    from faucet_tpu_torch.kernels import compact as KCP
 
     g = torch.Generator(device=dev)
     g.manual_seed(15)
+    N, K = 8192 * 46, 8192
+    ints = lambda hi, *shape: torch.randint(0, hi, shape or (N,),
+                                            generator=g, device=dev)
     res = {}
     for name, cap, specs, fill in UPSERT_CASES:
         specs = [(s, getattr(torch, d), m) for s, d, m in specs]
         modes = tuple(m for _, _, m in specs)
+        junction = name == "junction"
         pool = 4 * fill
-        phi = torch.randint(0, 1 << 30, (pool,), generator=g, device=dev)
-        plo = torch.randint(0, 1 << 32, (pool,), generator=g, device=dev)
-
-        def batch(m, lo_key=0, hi_key=pool):
-            pick = torch.randint(lo_key, hi_key, (m,), generator=g,
-                                 device=dev)
-            vals = tuple(torch.randint(0, 1 << 20, (m,) + sh, generator=g,
-                                       device=dev, dtype=dt)
-                         for sh, dt, _ in specs)
-            mask = torch.rand((m,), generator=g, device=dev) < 0.95
-            return TT._dedupe(phi[pick], plo[pick], vals, mask, modes)
-
+        phi, plo = ints(1 << 30, pool), ints(1 << 32, pool)
         tbl = TT.make(cap, tuple((sh, dt) for sh, dt, _ in specs),
                       device=dev)
         for lo_key in range(0, fill, 1 << 16):
-            sk = batch(1 << 16, lo_key, min(lo_key + (1 << 16), fill))
-            tbl = KU.probe_rounds_plain(tbl, *sk, modes)
-        # half the batch's keys held by the table, half new
-        fresh = lambda: batch(n, fill // 2, fill + fill // 2)
+            m = min(1 << 16, fill - lo_key)
+            pick = torch.arange(lo_key, lo_key + m, device=dev)
+            vals = tuple(torch.randint(0, 1 << 20, (m,) + sh, generator=g,
+                                       device=dev, dtype=dt)
+                         for sh, dt, _ in specs)
+            tbl = KU.probe_rounds(tbl, phi[pick], plo[pick], vals,
+                                  torch.ones(m, dtype=torch.bool,
+                                             device=dev), modes)
+
+        def fresh():
+            """A grid: keys half held, half new, a tenth repeated."""
+            mask = torch.zeros(N, dtype=torch.bool, device=dev)
+            mask[torch.randperm(N, generator=g, device=dev)[:live]] = True
+            pick = ints(fill, N) + fill // 2
+            rep = torch.rand(N, generator=g, device=dev) < 0.1
+            pick = torch.where(rep, pick % 512 + fill // 2, pick)
+            words = ints(1 << 32, 4, N).t()
+            if junction:
+                slots = (ints(8), ints(8), ints(46), ints(46),
+                         torch.rand(N, generator=g, device=dev) < 0.6,
+                         torch.rand(N, generator=g, device=dev) < 0.6)
+                vals = (words,)
+            else:
+                slots = None
+                vals = (ints(3).to(torch.int32) + 1, words)
+            idx, cnt = KCP.mask_indices(mask, N)
+            return (idx, cnt, K, phi[pick], plo[pick], vals, modes, slots,
+                    SC.cov_dist8)
+
         clone = lambda t: t._replace(
             keys_hi=t.keys_hi.clone(), keys_lo=t.keys_lo.clone(),
             vals=tuple(v.clone() for v in t.vals))
-        skhi, sklo, cvals, rep = fresh()
-        pending = []
+        args = fresh()
+        chunks = []
         orig = KU.rounds
 
         def rounds(step, p, max_rounds):
+            chunks.append([])
+
             def counted(r, p):
-                pending.append(int(p.sum()))
+                chunks[-1].append(int(p.sum()))
                 return step(r, p)
             return orig(counted, p, max_rounds)
 
@@ -1033,14 +1057,12 @@ def check_upsert(dev, n: int = 8192, reps: int = 20):
         m = TM.Metrics()
         try:
             with m.span("plain"):
-                want = KU.probe_rounds_plain(clone(tbl), skhi, sklo, cvals,
-                                             rep, modes)
+                want = KU.upsert_lanes_plain(clone(tbl), *args)
         finally:
             KU.rounds = orig
         mk = TM.Metrics()
         with mk.span("kernel"):
-            got = KU.probe_rounds(clone(tbl), skhi, sklo, cvals,
-                                  rep.clone(), modes)
+            got = KU.upsert_lanes(clone(tbl), *args)
         torch.cuda.synchronize()
         launches = mk.tally.get("upsert_launches", 0)
         err = 0
@@ -1054,21 +1076,25 @@ def check_upsert(dev, n: int = 8192, reps: int = 20):
             raise AssertionError(f"upsert {name}: kernel != plain ({err}) "
                                  f"or {launches} launches")
         won = int(want.count) - int(tbl.count)
-        live = int(rep.sum())
+        keys = sum(c[0] for c in chunks)  # distinct keys of each chunk
+        pending = [x for c in chunks for x in c]
         row = sum(int(torch.tensor([], dtype=dt).element_size())
                   * max(1, int(np.prod(sh))) for sh, dt, _ in specs)
-        # the batch read once (keys, mask, rows), each round's pending
-        # lanes' key words, the winners' claim (store, max, read) and key
-        # writes, and each written row read and written once
-        nbytes = (n * (16 + 1 + row) + 8 * sum(pending) + won * (24 + 8)
-                  + 2 * row * (live - int(want.dropped)))
-        wrapped = lambda a: KU.probe_rounds(tbl, *a, modes)
-        plain = lambda a: KU.probe_rounds_plain(tbl, *a, modes)
+        # a lane's list entry, key words and fields (the junction's four
+        # int64 slot fields and two flags in place of its two rows);
+        # each round's pending keys' key words, the winners' claim (store,
+        # max, read) and key writes, and each written row read and
+        # written once
+        lane = 8 + 16 + row - (64 - 34 if junction else 0)
+        nbytes = (live * lane + 8 * sum(pending) + won * (24 + 8)
+                  + 2 * row * (keys - int(want.dropped)))
+        wrapped = lambda a: KU.upsert_lanes(tbl, *a)
+        plain = lambda a: KU.upsert_lanes_plain(tbl, *a)
         setup = lambda: (fresh(),)
-        rec = {"lanes": n, "live": live, "capacity": cap,
-               "held": int(tbl.count), "won": won,
-               "rounds": sum(1 for x in pending if x),
-               "pending_by_round": pending,
+        rec = {"lanes": N, "live": live, "chunks": len(chunks),
+               "capacity": cap, "held": int(tbl.count), "won": won,
+               "keys": keys, "rounds": sum(1 for x in pending if x),
+               "pending_by_round": chunks,
                "plain_host_syncs": m.tally.get("host_syncs", 0),
                "launches_per_call": launches,
                "ms": cuda_ms(wrapped, reps, setup=setup),
@@ -1078,9 +1104,10 @@ def check_upsert(dev, n: int = 8192, reps: int = 20):
                                     device_only=True),
                "plain_ms": cuda_ms(plain, reps, setup=setup),
                "library_ms": None, "max_abs_err": err, **bound(nbytes)}
-        log_kernel(f"upsert {name} cap 2**{cap.bit_length() - 1} "
-                   f"{n} lanes ({rec['rounds']} rounds)", rec)
-        res[f"upsert_{name}_{n}"] = rec
+        log_kernel(f"upsert_lanes {name} cap 2**{cap.bit_length() - 1} "
+                   f"{live} of {N} lanes ({len(chunks)} chunks, "
+                   f"{rec['rounds']} rounds)", rec)
+        res[f"upsert_{name}_{live}"] = rec
     return res
 
 

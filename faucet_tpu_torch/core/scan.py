@@ -14,7 +14,9 @@ Wide tables carry the canonical code's four words as one more value,
 combined with "max".
 
 Device loops of the reference (lax.cond, fori_loop over a traced round
-count) are host loops here; each needs one host sync for its count.
+count) are host loops here; each needs one host sync for its count, but
+a single-shard batch's table updates: each is one upsert of every K-lane
+round of its compacted lanes (kernels/upsert.py upsert_lanes).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from faucet_tpu_torch.core import wide as WD
 from faucet_tpu_torch.core.hashing import pair_key
 from faucet_tpu_torch.core.slots import entry_slot, exit_slot
 from faucet_tpu_torch.kernels import compact as CP
+from faucet_tpu_torch.kernels import upsert as KU
 from faucet_tpu_torch.kernels import wide_ext as WX
 
 EMPTY = 0xFFFFFFFF
@@ -95,8 +98,8 @@ def spool_flush(junctions: T.Table, spool: JSpool, cfg
         head = torch.ones((S,), dtype=torch.bool, device=skey.device)
         head[1:] = skey[1:] != skey[:-1]
         seg = torch.cumsum(head, 0) - 1
-        cov8c = T._segment(cov8, seg, S, "add")
-        dist8c = T._segment(dist8, seg, S, "max")
+        cov8c = KU.segment(cov8, seg, S, "add")
+        dist8c = KU.segment(dist8, seg, S, "max")
         rep = head & (skhi != EMPTY)
         K = min(S, cfg.scan_update_cap)
 
@@ -250,14 +253,7 @@ def compact_rounds(mask, K: int, payloads, fn, state, compact, sync=None):
     rounds = -(-total // K) if total else 0
     if sync is not None:
         rounds = sync(rounds)
-    slot = torch.arange(K, device=mask.device)
-    for r in range(rounds):
-        take = idx[r * K:(r + 1) * K]
-        cm = slot < total - r * K
-        if total - r * K < K:
-            if take.shape[0] < K:
-                take = torch.zeros_like(slot)
-            take = torch.where(cm, take, 0)  # slots past total: don't-care
+    for take, cm in KU.chunk_lanes(idx, total, K, rounds):
         state = fn(state, cm, tuple(p[take] for p in payloads))
     return state, total
 
@@ -291,35 +287,32 @@ def scan_batch(cascade: BL.Cascade, junctions: T.Table, sinks: T.Table,
     u = scan_core(solid_fn, bases, lens, cfg, node_solid_fn=node_fn,
                   window_solid=window_solid)
     flat = lambda a: a.reshape(-1)
-    K = min(u.is_junc.numel(), cfg.scan_update_cap)
+    N = u.is_junc.numel()
+    K = min(N, cfg.scan_update_cap)
     wcol = () if u.words is None else (u.words.reshape(-1, WD.NW),)
     wmode = ("max",) * len(wcol)
+
+    def update(tbl, mask, vals, modes, slots=None):
+        # the lanes as the compaction lists them, every K-lane chunk of
+        # the update in one upsert (one launch on the card, no host read)
+        idx, cnt = CP.mask_indices(flat(mask), _whole_rounds(N, K))
+        with M.span("upsert"):
+            return KU.upsert_lanes(
+                tbl, idx, cnt, K, flat(u.key_hi), flat(u.key_lo), vals,
+                modes, slots=slots, rows=cov_dist8,
+                shard_bits=cfg.shard_bits)
 
     if jspool is not None and not wcol:
         with M.span("spool_append"):
             junctions, jspool = _spool_append(junctions, jspool, u, cfg)
     else:
-        def jfn(tbl, cm, ps):
-            jhi, jlo, exs, ens, exd, end_, exo, eno = ps[:8]
-            cov8, dist8 = cov_dist8(exs, ens, exd, end_, exo, eno)
-            return T.upsert(tbl, jhi, jlo, (cov8, dist8) + ps[8:], cm,
-                            modes=("add", "max") + wmode,
-                            shard_bits=cfg.shard_bits)
-
-        junctions, _ = upsert_rounds(
-            flat(u.is_junc), K,
-            (flat(u.key_hi), flat(u.key_lo), flat(u.ex_slot),
-             flat(u.en_slot), flat(u.ex_dist), flat(u.en_dist),
-             flat(u.exit_ok), flat(u.entry_ok)) + wcol, jfn, junctions)
-
-    def sfn(tbl, cm, ps):
-        return T.upsert(tbl, ps[0], ps[1], ps[2:], cm, modes=("add",) + wmode,
-                        shard_bits=cfg.shard_bits)
-
-    sinks, _ = upsert_rounds(
-        flat(u.sink_pos), K,
-        (flat(u.key_hi), flat(u.key_lo), flat(u.sink_cov)) + wcol, sfn,
-        sinks)
+        junctions = update(
+            junctions, u.is_junc, wcol, ("add", "max") + wmode,
+            slots=tuple(flat(f) for f in (u.ex_slot, u.en_slot, u.ex_dist,
+                                          u.en_dist, u.exit_ok,
+                                          u.entry_ok)))
+    sinks = update(sinks, u.sink_pos, (flat(u.sink_cov),) + wcol,
+                   ("add",) + wmode)
     return ScanResult(
         junctions=junctions, sinks=sinks, n_solid=u.n_solid,
         n_junc_pos=u.n_junc_pos, jm=u.jm, canon_hi=u.canon_hi,

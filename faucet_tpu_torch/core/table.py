@@ -1,10 +1,10 @@
 """Device-resident open-addressing hash map for (hi, lo) k-mer keys.
 
 Port of faucet_tpu/core/table.py. Same algorithm, so the slot arrays (not
-just the key -> value maps) equal the reference's: the batch is sorted by
-key and duplicate keys pre-combined; double-hashing probe rounds follow;
-an empty slot goes to the highest ticket that asks for it (scatter-max),
-and matched keys combine values per leaf ('add' / 'max').
+just the key -> value maps) equal the reference's: the reference sorts
+the batch by key and pre-combines duplicate keys; double-hashing probe
+rounds follow; an empty slot goes to the highest ticket that asks for it
+(scatter-max), and matched keys combine values per leaf ('add' / 'max').
 
 torch differences, each handled here:
 - keys are stored as int32 bit patterns (EMPTY = 0xFFFFFFFF is -1);
@@ -13,12 +13,14 @@ torch differences, each handled here:
   that absorbs the writes of lanes that write nothing. Real targets stay
   unique (one winner per slot, matches never collide with claims), as in
   the reference, so index_put_ stays deterministic where it matters;
-- the reference's device `while_loop` becomes, on CUDA tensors, one
-  launch of a kernel that runs every probe round of the call
-  (kernels/upsert.py, csrc/table_upsert.cu), and on CPU tensors, and in
-  `lookup` on both, a host loop (kernels/upsert.py `rounds`) that checks
-  `pending.any()` every ROUND_CHUNK probe rounds (extra rounds are no-ops
-  on settled lanes, so results are identical);
+- an upsert on CUDA tensors hands its batch, unsorted and with duplicate
+  keys, to ONE launch of a kernel that runs every probe round of the
+  call, claiming empty slots by key and combining duplicates on the table
+  (kernels/upsert.py, csrc/table_upsert.cu); on CPU tensors the batch is
+  sorted and combined (kernels/upsert.py `dedupe`) and the torch rounds
+  run in a host loop (kernels/upsert.py `rounds`), which `lookup` runs on
+  both devices, checking `pending.any()` every ROUND_CHUNK probe rounds
+  (extra rounds are no-ops on settled lanes, so results are identical);
 - upserts update the table's tensors in place (the reference's jit
   donates them); count/dropped are 0-d int64 tensors.
 """
@@ -33,8 +35,6 @@ from faucet_tpu_torch.core import u32x2 as u2
 from faucet_tpu_torch.core.hashing import hash_pair
 from faucet_tpu_torch.kernels import upsert as KU
 from faucet_tpu_torch.kernels.upsert import EMPTY_I32, probe_idx, rounds
-
-EMPTY = 0xFFFFFFFF  # keys_hi sentinel: valid k<=31 codes have hi < 2^30
 
 
 class Table(NamedTuple):
@@ -62,48 +62,17 @@ def make(cap: int, val_specs: Tuple[Tuple[tuple, torch.dtype], ...] = (),
                  dropped=zero())
 
 
-def _segment(v, seg, n: int, mode: str):
-    """Per-segment sum or max of v's rows, gathered back per lane."""
-    out = torch.zeros((n,) + v.shape[1:], dtype=v.dtype, device=v.device)
-    if mode == "add":
-        out.index_add_(0, seg, v)
-    elif mode == "max":
-        idx = seg.view((-1,) + (1,) * (v.dim() - 1)).expand_as(v)
-        out.scatter_reduce_(0, idx, v, "amax", include_self=False)
-    else:
-        raise ValueError(f"unknown combine mode {mode!r}")
-    return out[seg]
-
-
-def _dedupe(khi, klo, vals, mask, modes):
-    """Sort batch by key, combine duplicate keys' values; returns sorted
-    keys, combined values, and a representative mask."""
-    n = khi.shape[0]
-    khi_m = torch.where(mask, khi, EMPTY)
-    klo_m = torch.where(mask, klo, EMPTY)
-    skey, sidx = torch.sort(u2.sort_key(khi_m, klo_m), stable=True)
-    head = torch.ones((n,), dtype=torch.bool, device=khi.device)
-    head[1:] = skey[1:] != skey[:-1]
-    seg = torch.cumsum(head, 0) - 1
-    combined = tuple(_segment(v[sidx], seg, n, mode)
-                     for v, mode in zip(vals, modes))
-    skhi = khi_m[sidx]
-    return skhi, klo_m[sidx], combined, head & (skhi != EMPTY)
-
-
 def upsert(tbl: Table, khi, klo, vals: Tuple, mask, modes: Tuple[str, ...],
            max_rounds: int = 128, shard_bits: int = 0) -> Table:
     """Insert-or-combine a batch of keyed values, in place.
 
     khi/klo: int64[N] uint32 words; vals: tuple of [N, ...] in the
-    table's dtypes; mask: bool[N]; modes: per-value 'add' | 'max'. The
-    batch is sorted and combined here; its probe rounds are one kernel
-    launch on CUDA tensors, the torch rounds on CPU ones
-    (kernels/upsert.py probe_rounds). A span `upsert`."""
+    table's dtypes; mask: bool[N]; modes: per-value 'add' | 'max'. One
+    kernel launch on CUDA tensors, the sort, combine and torch rounds on
+    CPU ones (kernels/upsert.py probe_rounds). A span `upsert`."""
     with M.span("upsert"):
-        skhi, sklo, cvals, rep = _dedupe(khi, klo, vals, mask, modes)
-        return KU.probe_rounds(tbl, skhi, sklo, cvals, rep, modes,
-                               max_rounds, shard_bits)
+        return KU.probe_rounds(tbl, khi, klo, vals, mask, modes, max_rounds,
+                               shard_bits)
 
 
 def lookup(tbl: Table, khi, klo, mask, max_rounds: int = 128,

@@ -117,10 +117,13 @@ def library() -> ctypes.CDLL:
         lib.ft_mask_indices.argtypes = [p, i64, p, i64, p, p, i64, i32, p]
         lib.ft_wide_ext_keys.restype = i32
         lib.ft_wide_ext_keys.argtypes = [p, p, i64, i32, p, p, p]
+        i64s = ctypes.POINTER(i64)
         lib.ft_table_upsert.restype = i32
-        lib.ft_table_upsert.argtypes = [p, p, i64, p, p, p, i64, p, p, p,
-                                        p, p, i32, i32, i32,
-                                        p, p, i32, p, p, i32, p, p, i32, p]
+        lib.ft_table_upsert.argtypes = [p, p, i64, p, p, p, p, p, i64, i64,
+                                        p, p, p, p, p, p, p, p, i32, i32,
+                                        i64s, i32, i64s, p]
+        lib.ft_table_upsert_threads.restype = i64
+        lib.ft_table_upsert_threads.argtypes = []
         lib.ft_error_string.restype = ctypes.c_char_p
         lib.ft_error_string.argtypes = [i32]
         _lib = lib

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 _local = threading.local()
+TALLY_SLOTS = 64  # device tally keys of a Metrics (one 512-byte block)
 
 
 def _stack() -> list:
@@ -89,6 +90,9 @@ class Metrics:
         self.path = jsonl_path
         self._counters: Dict[str, float] = {}
         self._device: Dict[str, torch.Tensor] = {}  # unread device sums
+        # the tally's device counts: one int64 buffer, a slot a key
+        self._tally_buf: Optional[torch.Tensor] = None
+        self._tally_slots: Dict[str, int] = {}
         self.tally: Dict[str, int] = {}
         self.timers: Dict[str, float] = {}
 
@@ -103,16 +107,35 @@ class Metrics:
         else:
             self._counters[key] = self._counters.get(key, 0) + val
 
+    def on_device(self, key: str, device) -> torch.Tensor:
+        """The int64 0-d tensor on `device` that a kernel adds its count
+        of tally `key` into, in place: no launch and no read of its own;
+        it joins the tally when `counters` is read. The keys share one
+        buffer of TALLY_SLOTS (one allocation)."""
+        if self._tally_buf is None:
+            self._tally_buf = torch.zeros((TALLY_SLOTS,), dtype=torch.int64,
+                                          device=device)
+        slot = self._tally_slots.get(key)
+        if slot is None:
+            slot = len(self._tally_slots)
+            if slot == TALLY_SLOTS:
+                raise ValueError(f"more than {TALLY_SLOTS} device tally "
+                                 "keys")
+            self._tally_slots[key] = slot
+        return self._tally_buf[slot]
+
     @property
     def counters(self) -> Dict[str, float]:
-        """Every counter as a host number: the device sums are read here,
-        in one fetch."""
-        if self._device:
-            keys = list(self._device)
-            vals = self.fetch(torch.stack([self._device[k] for k in keys]))
-            self._device = {}
-            for k, v in zip(keys, vals.tolist()):
-                self._counters[k] = self._counters.get(k, 0) + v
+        """Every counter as a host number: the device sums, and the
+        tally's device counts, are read here, in one fetch."""
+        sums = [(self._counters, k, v) for k, v in self._device.items()] \
+            + [(self.tally, k, self._tally_buf[i])
+               for k, i in self._tally_slots.items()]
+        if sums:
+            vals = self.fetch(torch.stack([v for _, _, v in sums]))
+            self._device, self._tally_buf, self._tally_slots = {}, None, {}
+            for (into, k, _), v in zip(sums, vals.tolist()):
+                into[k] = into.get(k, 0) + v
         return self._counters
 
     def count(self, key: str, n: int = 1):

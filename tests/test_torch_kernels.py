@@ -406,23 +406,26 @@ def _tables_equal(a, b):
 
 
 def test_upsert_takes_plain_version_on_cpu_and_checks_arguments(rng):
-    """kernels/upsert.probe_rounds on CPU tensors is the torch rounds
-    (probe_rounds_plain), counting no launch, and refuses what either
-    version does not take (contiguity is the card's own check: the torch
-    rounds take any layout); core/table.py upsert runs in a span `upsert`
-    with its probe_round spans inside."""
+    """kernels/upsert.probe_rounds on CPU tensors is the sort and combine
+    (dedupe) and the torch rounds (probe_rounds_plain), counting no
+    launch, on a raw batch and on one already combined; it refuses what
+    either version does not take (contiguity is the card's own check: the
+    torch rounds take any layout); core/table.py upsert runs in a span
+    `upsert` with its probe_round spans inside."""
     from faucet_tpu_torch.core import table as TT
 
     tbl, (khi, klo, vals, mask), modes = _upsert_case(
         rng, 1 << 10, 600, JUNCTION_VALS + WORD_VALS, n_keys=300, fill=200)
-    skhi, sklo, cvals, rep = TT._dedupe(khi, klo, vals, mask, modes)
+    skhi, sklo, cvals, rep = KU.dedupe(khi, klo, vals, mask, modes)
     with tallied() as tally:
         got = KU.probe_rounds(_clone_table(tbl), skhi, sklo, cvals, rep,
                               modes)
+        raw = KU.probe_rounds(_clone_table(tbl), khi, klo, vals, mask, modes)
     want = KU.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
                                  modes)
     assert launches(tally) == 0
     _tables_equal(got, want)
+    _tables_equal(raw, want)
     assert int(got.count) > int(tbl.count)
     c0, c1, c2 = cvals
     _tables_equal(KU.probe_rounds(_clone_table(tbl), skhi, sklo,
@@ -454,6 +457,135 @@ def test_upsert_takes_plain_version_on_cpu_and_checks_arguments(rng):
     assert "outer/upsert/probe_round" in m.timers
     assert m.tally["table_probe_rounds"] > 0
     assert "upsert_launches" not in m.tally
+
+
+# the scan's table updates (kernels/upsert.py upsert_lanes): the tables of
+# core/scan.py scan_batch and the scan grid's fields they are built from
+LANE_TABLES = {"sink": SINK_VALS, "junction": JUNCTION_VALS,
+               "wide_sink": SINK_VALS + WORD_VALS,
+               "wide_junction": JUNCTION_VALS + WORD_VALS}
+
+
+def _collide_keys(n_keys, cap, rng):
+    """n_keys distinct keys whose round-0 probe slot in a table of `cap`
+    rows is one of four: their probe sequences collide."""
+    from faucet_tpu_torch.core.hashing import hash_pair
+
+    hi = rng.integers(0, 1 << 30, 1 << 21).astype(np.uint32)
+    lo = rng.integers(0, 1 << 32, 1 << 21, dtype=np.uint64).astype(np.uint32)
+    h1, _ = hash_pair(TU.u32(hi), TU.u32(lo))
+    pick = np.nonzero(((h1 & (cap - 1)) < 4).numpy())[0][:n_keys]
+    assert len(pick) == n_keys
+    return hi[pick], lo[pick]
+
+
+def _lane_grid(rng, kind, N, live, n_keys, cap, fill, device="cpu"):
+    """A table of `kind` with `fill` keys of the pool already upserted, and
+    a flat scan grid of N lanes, `live` of them updates (a few with an
+    EMPTY key), their keys drawn from n_keys distinct keys (duplicates
+    when fewer than live; "collide": keys of colliding probe sequences),
+    as core/scan.py scan_batch hands them to upsert_lanes: key words,
+    slot fields, sink coverage and the code words as a strided [N, 4]
+    view of [4, N]."""
+    from faucet_tpu_torch.core import scan as TSC
+    from faucet_tpu_torch.core import table as TT
+
+    specs = LANE_TABLES[kind]
+    modes = tuple(m for _, _, m in specs)
+    if n_keys == "collide":
+        phi, plo = _collide_keys(800, cap, rng)
+    else:
+        n_pool = (n_keys or max(live, 1)) + fill
+        phi = rng.integers(0, 1 << 30, n_pool).astype(np.uint32)
+        plo = rng.integers(0, 1 << 32, n_pool,
+                           dtype=np.uint64).astype(np.uint32)
+    mask = np.zeros(N, bool)
+    mask[rng.choice(N, live, replace=False)] = True
+    pick = rng.integers(0, len(phi), N)
+    hi, lo = phi[pick].copy(), plo[pick]
+    hi[rng.random(N) < 0.005] = SENT
+    words = rng.integers(0, 1 << 32, (4, N), dtype=np.uint64)
+    grid = dict(
+        mask=mask, khi=hi.astype(np.int64), klo=lo.astype(np.int64),
+        ex_slot=rng.integers(0, 8, N), en_slot=rng.integers(0, 8, N),
+        ex_dist=rng.integers(0, 100, N), en_dist=rng.integers(0, 100, N),
+        exit_ok=rng.random(N) < 0.6, entry_ok=rng.random(N) < 0.6,
+        cov=rng.integers(1, 3, N).astype(np.int32),
+        words=words.astype(np.int64))
+    g = types.SimpleNamespace(**{k: torch.from_numpy(v).to(device)
+                                 for k, v in grid.items()})
+    wide = kind.startswith("wide")
+    wcol = (g.words.t(),) if wide else ()
+    if kind.endswith("junction"):
+        g.slots = (g.ex_slot, g.en_slot, g.ex_dist, g.en_dist, g.exit_ok,
+                   g.entry_ok)
+        g.vals = wcol
+    else:
+        g.slots, g.vals = None, (g.cov,) + wcol
+    g.modes, g.rows = modes, TSC.cov_dist8
+    tbl = TT.make(cap, tuple((sh, d) for sh, d, _ in specs), device=device)
+    if fill:
+        fv = tuple(torch.from_numpy(rng.integers(
+            0, 1 << 20, (fill,) + sh).astype(np.int64)).to(d).to(device)
+            for sh, d, _ in specs)
+        tbl = TT.upsert(tbl, TU.u32(phi[-fill:], device),
+                        TU.u32(plo[-fill:], device), fv,
+                        torch.ones(fill, dtype=torch.bool, device=device),
+                        modes)
+    return tbl, g
+
+
+def _lanes_by_rounds(tbl, g, K, max_rounds=128, shard_bits=0):
+    """The scan's table update as it was: core/scan.py upsert_rounds
+    (one compaction, K-lane rounds of gathered payloads), the junction
+    rows built by cov_dist8, each round a core/table.py upsert."""
+    from faucet_tpu_torch.core import scan as TSC
+    from faucet_tpu_torch.core import table as TT
+
+    n_rows = 0 if g.slots is None else 6
+
+    def fold(t, cm, ps):
+        vals = ps[2 + n_rows:]
+        if n_rows:
+            vals = tuple(g.rows(*ps[2:8])) + vals
+        return TT.upsert(t, ps[0], ps[1], vals, cm, g.modes, max_rounds,
+                         shard_bits)
+
+    tbl, _ = TSC.upsert_rounds(g.mask, K, (g.khi, g.klo)
+                               + (g.slots or ()) + g.vals, fold, tbl)
+    return tbl
+
+
+def _upsert_lanes(tbl, g, K, max_rounds=128, shard_bits=0):
+    idx, cnt = KCP.mask_indices(g.mask, -(-g.mask.shape[0] // K) * K)
+    return KU.upsert_lanes(tbl, idx, cnt, K, g.khi, g.klo, g.vals, g.modes,
+                           g.slots, g.rows, max_rounds, shard_bits)
+
+
+@pytest.mark.parametrize("kind", list(LANE_TABLES))
+@pytest.mark.parametrize("case", ["duplicates", "dropped"])
+def test_upsert_lanes_plain_equals_upsert_rounds(rng, kind, case):
+    """On the CPU, upsert_lanes (its plain version: per K-lane chunk the
+    gathers, the junction rows, dedupe and the torch rounds) leaves the
+    same junction and sink tables, narrow (k = 31) and wide (k = 55), as
+    the scan's former round loop (upsert_rounds of core/table.py
+    upserts), including probe overflow with duplicates among the dropped
+    keys; it tallies the lanes and chunks it took, and no launch."""
+    N, live, n_keys, cap, fill, K, rounds = {
+        "duplicates": (64 * 70, 1500, 400, 1 << 12, 200, 512, 128),
+        "dropped": (64 * 46, 1500, 600, 1 << 8, 100, 512, 4)}[case]
+    tbl, g = _lane_grid(rng, kind, N, live, n_keys, cap, fill)
+    want = _lanes_by_rounds(_clone_table(tbl), g, K, rounds)
+    m = TM.Metrics()
+    with m.span("scan"):
+        got = _upsert_lanes(_clone_table(tbl), g, K, rounds)
+    _tables_equal(got, want)
+    assert int(got.count) > int(tbl.count)
+    assert (int(got.dropped) > 0) == (case == "dropped")
+    assert m.tally["upsert_lanes"] == live
+    assert m.tally["upsert_chunks"] == -(-live // K)
+    assert launches(m.tally) == 0
+    assert "scan/probe_round" in m.timers
 
 
 def _filter(rng, W):
@@ -550,7 +682,10 @@ def test_mask_indices_plain_vs_tpu_kernel(ref, rng, density, cap):
 def _entry_args(dev="cpu"):
     """Well-formed arguments of each kernel entry on `dev`: a filter of
     2**10 bits probed with 3 bits, 64 codes, their mask; a table of 2**6
-    slots and a deduplicated batch of its 64 codes; wide windows."""
+    slots and a batch of its 64 codes; a junction table of 2**6 slots and
+    the 64 codes as scan lanes, listed by the compaction, with their slot
+    fields; wide windows."""
+    from faucet_tpu_torch.core import scan as TSC
     from faucet_tpu_torch.core import table as TT
 
     g = torch.Generator().manual_seed(5)
@@ -560,9 +695,14 @@ def _entry_args(dev="cpu"):
     mask = (torch.rand(64, generator=g) < 0.5).to(dev)
     tbl = TT.make(1 << 6, (((), torch.int32),), device=dev)
     cv = torch.ones(64, dtype=torch.int32, device=dev)
+    jtbl = TT.make(1 << 6, (((8,), torch.int32),) * 2, device=dev)
+    slots = tuple(torch.randint(0, 8, (64,), generator=g).to(dev)
+                  for _ in range(4)) + (mask, ~mask)
+    idx, cnt = KCP.mask_indices(mask, 64)
     return types.SimpleNamespace(
         words=words, khi=k64(64), klo=k64(64), mask=mask, tbl=tbl, cv=cv,
-        canon=k64(4, 8, 5), other=k64(4, 8, 5))
+        canon=k64(4, 8, 5), other=k64(4, 8, 5), jtbl=jtbl, slots=slots,
+        idx=idx, cnt=cnt, rows=TSC.cov_dist8)
 
 
 # (entry, what is malformed, the call): each must raise ValueError on
@@ -628,7 +768,39 @@ REFUSALS = (
         a.mask, ("add",))),
     ("probe_rounds", "max_rounds", lambda a: KU.probe_rounds(
         a.tbl, a.khi, a.klo, (a.cv,), a.mask, ("add",), -1)),
-)
+) + tuple(("upsert_lanes", what, call) for what, call in (
+    ("K", lambda a: _lanes_call(a, K=0)),
+    ("K not an int", lambda a: _lanes_call(a, K=8.0)),
+    ("list shorter than the grid", lambda a: _lanes_call(
+        a, idx=a.idx[:32])),
+    ("count dtype", lambda a: _lanes_call(a, cnt=a.cnt.int())),
+    ("key dtype", lambda a: _lanes_call(a, khi=a.khi.int())),
+    ("slot field dtype", lambda a: _lanes_call(
+        a, slots=(a.slots[0].int(),) + a.slots[1:])),
+    ("flag dtype", lambda a: _lanes_call(
+        a, slots=a.slots[:4] + (a.slots[4].long(), a.slots[5]))),
+    ("five slot fields", lambda a: _lanes_call(a, slots=a.slots[:5])),
+    ("slots without rows", lambda a: _lanes_call(a, rows=None)),
+    ("junction rows into a sink table", lambda a: _lanes_call(
+        a, tbl=a.tbl._replace(vals=a.tbl.vals * 2))),
+    ("junction modes", lambda a: _lanes_call(a, modes=("max", "max"))),
+    ("value grid dtype", lambda a: _lanes_call(
+        a, tbl=a.tbl, vals=(a.cv.long(),), modes=("add",), slots=None)),
+    ("value grid shape", lambda a: _lanes_call(
+        a, tbl=a.tbl, vals=(a.cv[:-1],), modes=("add",), slots=None)),
+    ("values and modes", lambda a: _lanes_call(
+        a, tbl=a.tbl, vals=(a.cv,), modes=("add", "add"), slots=None)),
+))
+
+
+def _lanes_call(a, **kw):
+    """upsert_lanes of the junction table over _entry_args' lanes, with
+    the keyword arguments given in place of its own."""
+    args = dict(tbl=a.jtbl, idx=a.idx, cnt=a.cnt, K=16, khi=a.khi,
+                klo=a.klo, vals=(), modes=("add", "max"), slots=a.slots,
+                rows=a.rows)
+    args.update(kw)
+    return KU.upsert_lanes(**args)
 
 
 @pytest.mark.parametrize("entry,what,call", REFUSALS,
@@ -661,6 +833,11 @@ def test_entries_take_well_formed_arguments():
     assert KW.slot_ext_keys(a.canon, a.other, 55)[0].shape == (8, 5, 8)
     t = KU.probe_rounds(a.tbl, a.khi, a.klo, (a.cv,), a.mask, ("add",))
     assert int(t.count) > 0
+    a = _entry_args()
+    t = _lanes_call(a)
+    assert int(t.count) == int(a.cnt) > 0
+    t = _lanes_call(a, tbl=a.tbl, vals=(a.cv,), modes=("add",), slots=None)
+    assert int(t.count) == int(a.cnt)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -1102,7 +1279,7 @@ def test_upsert_kernel_on_card(cuda, case):
     rng = np.random.default_rng(1500 + len(name) + n)
     tbl, (khi, klo, vals, mask), modes = _upsert_case(
         rng, cap, n, specs, n_keys=n_keys, fill=fill, device=cuda)
-    skhi, sklo, cvals, rep = TT._dedupe(khi, klo, vals, mask, modes)
+    skhi, sklo, cvals, rep = KU.dedupe(khi, klo, vals, mask, modes)
     want = KU.probe_rounds_plain(_clone_table(tbl), skhi, sklo, cvals, rep,
                                  modes, rounds, sb)
     with tallied() as tally:
@@ -1142,6 +1319,163 @@ def test_upsert_one_launch_and_no_rounds_on_card(cuda):
     assert not any(k.endswith("probe_round") for k in m.timers)
     assert "table_probe_rounds" not in m.tally
     assert "host_syncs" not in m.tally
+
+
+# (name, table, grid lanes N, live lanes, distinct keys, capacity, keys
+# already held, shard_bits, K, max_rounds)
+LANES_CASES = (
+    ("junction_dups", "junction", 8192 * 70, 20_000, 2_000, 1 << 15, 0, 0,
+     8192, 128),
+    ("wide_junction", "wide_junction", 8192 * 46, 12_000, 9_000, 1 << 15,
+     3_000, 0, 8192, 128),
+    ("sink_two_chunks", "sink", 8192 * 70, 16_384, None, 1 << 16, 5_000, 0,
+     8192, 128),
+    ("wide_sink_one_chunk", "wide_sink", 8192 * 46, 8192, 6_000, 1 << 16,
+     0, 0, 8192, 128),
+    ("no_lanes", "junction", 8192 * 70, 0, None, 1 << 12, 500, 0, 8192,
+     128),
+    ("collide", "sink", 65_536, 6_000, "collide", 1 << 12, 0, 0, 4096, 128),
+    ("dropped", "wide_junction", 4_096, 1_500, 600, 1 << 8, 100, 0, 512, 4),
+    ("shards", "wide_junction", 65_536, 20_000, 8_000, 1 << 15, 2_000, 2,
+     8192, 128),
+    ("chunks_past_the_grid", "sink", 1 << 20, 700_000, 500_000, 1 << 21, 0,
+     0, 1 << 19, 128),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LANES_CASES, ids=lambda c: c[0])
+def test_upsert_lanes_on_card(cuda, case):
+    """upsert_lanes on the card (one launch: the listed lanes unsorted,
+    duplicates combined on the table, every chunk) == its plain version
+    on the CPU, bit for bit: rows [:cap] of the keys and every value
+    array, count and dropped, and the lanes and chunks it tallies. Heavy
+    duplicates, colliding probe sequences, 0 lanes, exactly K, 2K and a
+    count that is not a multiple of K, narrow and wide junction and sink
+    tables, overflow with duplicates among the dropped keys, shard_bits
+    2, and chunks wider than the threads the card holds at once. Twice
+    over: the second pass only matches."""
+    name, kind, N, live, n_keys, cap, fill, sb, K, rounds = case
+    rng = np.random.default_rng(1800 + len(name) + live)
+    tbl, g = _lane_grid(rng, kind, N, live, n_keys, cap, fill)
+    tbl_c, g_c = _lane_grid(np.random.default_rng(1800 + len(name) + live),
+                            kind, N, live, n_keys, cap, fill, device=cuda)
+    want = _upsert_lanes(_clone_table(tbl), g, K, rounds, sb)
+    m = TM.Metrics()
+    with m.span("scan"):
+        got = _upsert_lanes(_clone_table(tbl_c), g_c, K, rounds, sb)
+        assert "host_syncs" not in m.tally
+        again = _upsert_lanes(got, g_c, K, rounds, sb)
+    want2 = _upsert_lanes(want, g, K, rounds, sb)
+    torch.cuda.synchronize()
+    assert launches(m.tally, "upsert") == 2
+    assert launches(m.tally) == launches(m.tally, "compact") + 2
+    cpu = lambda t: t._replace(keys_hi=t.keys_hi.cpu(),
+                               keys_lo=t.keys_lo.cpu(),
+                               vals=tuple(v.cpu() for v in t.vals))
+    _tables_equal(cpu(got), want)
+    _tables_equal(cpu(again), want2)
+    m.counters
+    assert m.tally["upsert_lanes"] == 2 * live
+    assert m.tally["upsert_chunks"] == 2 * -(-live // K)
+    assert (int(want.count) > int(tbl.count)) == (live > 0)
+    assert (int(want.dropped) > 0) == (name == "dropped")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_keys,cap,rounds", [
+    (8192, 1_000, 1 << 14, 128), (573_440, 100_000, 1 << 19, 128),
+    (2_000, 700, 1 << 8, 3)], ids=["block", "grid", "dropped"])
+def test_upsert_unsorted_duplicates_on_card(cuda, n, n_keys, cap, rounds):
+    """core/table.py upsert on the card, given an unsorted batch with
+    duplicate keys, == the sorted path (dedupe, then the torch rounds) on
+    the card: rows [:cap], count and dropped; one launch, no sort."""
+    from faucet_tpu_torch.core import table as TT
+
+    rng = np.random.default_rng(18 + n)
+    tbl, (khi, klo, vals, mask), modes = _upsert_case(
+        rng, cap, n, JUNCTION_VALS + WORD_VALS, n_keys=n_keys,
+        fill=n_keys // 4, device=cuda)
+    want = KU.probe_rounds_plain(
+        _clone_table(tbl), *KU.dedupe(khi, klo, vals, mask, modes), modes,
+        rounds)
+    sorts = []
+    orig = torch.sort
+    with tallied() as tally:
+        torch.sort = lambda *a, **kw: sorts.append(1) or orig(*a, **kw)
+        try:
+            got = TT.upsert(_clone_table(tbl), khi, klo, vals, mask, modes,
+                            rounds)
+        finally:
+            torch.sort = orig
+    torch.cuda.synchronize()
+    assert launches(tally) == launches(tally, "upsert") == 1 and not sorts
+    _tables_equal(got, want)
+    assert (int(want.dropped) > 0) == (rounds < 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,call", [(w, c) for e, w, c in REFUSALS
+                                       if e == "upsert_lanes"],
+                         ids=[w for e, w, _ in REFUSALS
+                              if e == "upsert_lanes"])
+def test_upsert_lanes_refuses_on_card(cuda, what, call):
+    """upsert_lanes refuses on the card what it refuses on the CPU
+    (ValueError), before a launch."""
+    a = _entry_args(cuda)
+    with tallied() as tally:
+        with pytest.raises(ValueError):
+            call(a)
+    torch.cuda.synchronize()
+    assert launches(tally) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 55])
+def test_stream_batch_one_upsert_launch_a_table_on_card(cuda, k):
+    """A single-shard stream batch on the card makes one upsert launch
+    per table it updates (k = 55: junctions and sinks; k = 31: sinks,
+    the junctions going to the spool) and no torch.sort (no spool flush
+    falls in these batches); it tallies the lanes and chunks that the
+    CPU's plain version tallies."""
+    from faucet_tpu_torch import simulate
+    from faucet_tpu_torch.pipeline import Pipeline, batch_iter
+
+    rng = np.random.default_rng(1831 + k)
+    genome = simulate.genome_with_repeats(rng, 20_000, n_repeats=3,
+                                          repeat_len=300)
+    reads = simulate.shred(rng, genome, coverage=30, read_len=100,
+                           err_rate=0.005, circular=True)
+    cfg = TConfig(size_kmer=k, max_read_length=100, batch_reads=4096,
+                  estimated_kmers=1 << 16, singletons=1 << 17,
+                  junction_capacity=1 << 14, sink_capacity=1 << 16,
+                  fp_rate=0.002)
+    batches = list(batch_iter(reads, cfg))
+    assert len(batches) >= 2
+    tallies = []
+    for dev in ("cpu", cuda):
+        p = Pipeline(cfg, device=dev)
+        sorts = []
+        orig = torch.sort
+
+        def sort(*a, **kw):
+            sorts.append(TM._stack()[-1].path)
+            return orig(*a, **kw)
+
+        torch.sort = sort
+        try:
+            for bases, lens in batches:
+                p.stream_step(bases, lens)
+        finally:
+            torch.sort = orig
+        p.metrics.counters
+        tallies.append(dict(p.metrics.tally))
+    tally = tallies[1]
+    assert "spool_flushes" not in tally
+    assert tally["upsert_launches"] == (2 if k > 31 else 1) * len(batches)
+    assert sorts == []
+    for key in ("upsert_lanes", "upsert_chunks"):
+        assert tally[key] == tallies[0][key] > 0
 
 
 @pytest.mark.cuda

@@ -114,6 +114,31 @@ def test_fetch_is_a_counted_sync_span_and_add_reads_nothing():
     assert rec["tally"] == {"host_syncs": 2}
 
 
+def test_device_tally_counts_join_the_tally_when_counters_are_read():
+    """Metrics.on_device hands a kernel one slot of a shared device buffer
+    a key; the counts reach the tally (not the reference's counters) in
+    the one fetch that reads the counters, and start again from 0."""
+    m = M.Metrics()
+    m.add("solid_windows", torch.tensor(5))
+    lanes = m.on_device("upsert_lanes", "cpu")
+    lanes.add_(7)
+    m.on_device("upsert_chunks", "cpu").add_(1)
+    m.on_device("upsert_lanes", "cpu").add_(2)
+    assert m.on_device("upsert_lanes", "cpu").data_ptr() == lanes.data_ptr()
+    assert "upsert_lanes" not in m.tally
+    assert m.counters == {"solid_windows": 5}
+    assert m.tally == {"host_syncs": 1, "upsert_lanes": 9,
+                       "upsert_chunks": 1}
+    m.on_device("upsert_lanes", "cpu").add_(4)
+    assert m.emit("done")["tally"] == {"host_syncs": 2, "upsert_lanes": 13,
+                                       "upsert_chunks": 1}
+    for i in range(M.TALLY_SLOTS):
+        m.on_device(f"k{i}", "cpu")
+    with pytest.raises(ValueError):
+        m.on_device("one more", "cpu")
+    assert m.counters == {"solid_windows": 5} and m.tally["k0"] == 0
+
+
 # ---- the program's spans ----------------------------------------------------
 
 
@@ -351,7 +376,7 @@ def test_profile_trace_holds_the_spans(reads, tmp_path):
     events = json.loads((tmp_path / "prof.trace" / "trace.json")
                         .read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
-    for span in ("load", "load/load_batch", "scan/scan_batch/sync",
+    for span in ("load", "load/load_batch", "scan/scan_batch/upsert/sync",
                  "build/extract", "build/pass1/walk/round",
                  "build/pass1/walk/resolve", "build/pass1/walk/collect",
                  "clean"):
