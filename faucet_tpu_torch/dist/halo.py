@@ -67,7 +67,8 @@ import numpy as np
 from faucet_tpu_torch.core.hashing import hash_pair_np
 from faucet_tpu_torch.core.kmer import encode_windows_np, revcomp_seq
 from faucet_tpu_torch.graph.clean import (EQLEN_RATIO, ISO_COV_MULT,
-                                          TIP_KEEP_RATIO, seq_rank64)
+                                          TIP_KEEP_RATIO, arm_key,
+                                          seq_rank64)
 from faucet_tpu_torch.graph.model import Contig, ContigGraph, End
 
 _GID_SHIFT = 40  # gid = (owner_shard << 40) | local_serial
@@ -484,7 +485,8 @@ class PartitionedCleaner:
 
     def _bubble_round(self, ratio: float) -> int:
         """Relative-coverage bubble popping, partitioned: each JJ contig
-        reports (node-pair, cov, len, rank) to the pair's arbiter shard
+        reports (node-pair and sides, clean.arm_key; cov, len, rank) to
+        the pair's arbiter shard
         (owner of the smaller node code); the arbiter applies
         clean.pop_bubbles' FULL rule — (cov, seq_rank64) top-arm pick,
         `cov <= ratio*top` kill, and the EQLEN_RATIO equal-length kill —
@@ -499,25 +501,27 @@ class PartitionedCleaner:
             for gid, c in self.shards[s].contigs.items():
                 if c.circular or c.left is None or c.right is None:
                     continue
-                ca = _node_code(min(c.left.node, c.right.node), k)
-                cb = _node_code(max(c.left.node, c.right.node), k)
+                (na, sa), (nb, sb) = arm_key(c)
+                ca, cb = _node_code(na, k), _node_code(nb, k)
                 arb = _owner_of_code(min(ca, cb), n)
                 ha, la = _split64(ca)
                 hb, lb = _split64(cb)
                 cv = _f64(c.cov)
                 rk = _split64(seq_rank64(c.canonical_seq()))
-                out[s][arb].append((7, ha, la, hb, lb, cv[0], cv[1],
+                # the tag carries the two ends' sides (arm_key)
+                out[s][arb].append((7 | sa << 4 | sb << 5, ha, la, hb, lb,
+                                    cv[0], cv[1],
                                     gid >> 32, gid & 0xFFFFFFFF,
                                     len(c.seq), rk[0], rk[1]))
         inbox = self.ex.exchange(out)
         out = self._empty_out()
         for d in range(n):
-            groups: Dict[Tuple[int, int], List[Tuple]] = {}
+            groups: Dict[Tuple[int, int, int], List[Tuple]] = {}
             for src in range(n):
                 for m in inbox[d][src]:
-                    _, ha, la, hb, lb, c0, c1, g1, g2, ln, r0, r1 = m[:12]
-                    groups.setdefault((_u64((ha, la)), _u64((hb, lb))),
-                                      []).append(
+                    tag, ha, la, hb, lb, c0, c1, g1, g2, ln, r0, r1 = m[:12]
+                    groups.setdefault((_u64((ha, la)), _u64((hb, lb)),
+                                       tag >> 4), []).append(
                         (_unf64(c0, c1), _u64((g1, g2)), ln,
                          _u64((r0, r1))))
             for arms in groups.values():

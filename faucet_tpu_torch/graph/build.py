@@ -355,7 +355,10 @@ class GraphBuilder:
     def build(self) -> ContigGraph:
         """Spans: `extract` (tables to the host, junction index), `pass1`
         (walks from junction slots, their contigs), `pass2` (visited
-        k-mers, walks from sink anchors), `repair` (port clashes)."""
+        k-mers, walks from sink anchors; its `keys`, every window keying
+        of the sink codec), `repair` (port clashes). Tallies
+        `pass2_seeds` (sink anchors walked) and `pass2_dups` (pass-2
+        contigs dropped as near-duplicates)."""
         cfg = self.cfg
         k = cfg.size_kmer
         with M.span("extract"):
@@ -420,7 +423,8 @@ class GraphBuilder:
 
             def mark_visited(c: Contig):
                 src = c.seq + (c.seq[: k - 1] if c.circular else "")
-                w = self.codec_s.key_windows(src)
+                with M.span("keys"):
+                    w = self.codec_s.key_windows(src)
                 if not len(w):
                     return
                 w.sort()
@@ -443,9 +447,10 @@ class GraphBuilder:
 
             # pass 1's contigs go in as one sorted chunk, keyed in one call
             # (membership is the same as marking them one by one)
-            w = self.codec_s.key_windows_many(
-                [c.seq + (c.seq[: k - 1] if c.circular else "")
-                 for c in by_key.values()])
+            with M.span("keys"):
+                w = self.codec_s.key_windows_many(
+                    [c.seq + (c.seq[: k - 1] if c.circular else "")
+                     for c in by_key.values()])
             if len(w):
                 w.sort()
                 chunks.append(w)
@@ -455,6 +460,9 @@ class GraphBuilder:
             skeys_s = u2.to_int(st["hi"], st["lo"])
             chunk = 4096
             pend = np.arange(n_s)[~np.isin(skeys_s, jset)]
+            # both tallies are there when pass 2 walks nothing
+            M.count("pass2_seeds", 0)
+            M.count("pass2_dups", 0)
             while len(pend):
                 live = ~visited_mask(skeys_s[pend])
                 pend = pend[live]
@@ -470,6 +478,7 @@ class GraphBuilder:
                     break
                 snode_strs = {i: s for i, s in zip(
                     batch, self.codec_s.node_strs(st, batch))}
+                M.count("pass2_seeds", len(batch))
                 new = self._pass2_contigs(st, batch, snode_strs)
                 for c in new:
                     key = c.canonical_seq()
@@ -477,9 +486,11 @@ class GraphBuilder:
                         continue
                     # drop near-duplicates of already-walked paths (a sink
                     # anchor one base OFF a real path re-walks it)
-                    w = self.codec_s.key_windows(
-                        c.seq + (c.seq[: k - 1] if c.circular else ""))
+                    with M.span("keys"):
+                        w = self.codec_s.key_windows(
+                            c.seq + (c.seq[: k - 1] if c.circular else ""))
                     if len(w) and visited_mask(w).mean() > 0.5:
+                        M.count("pass2_dups")
                         continue
                     by_key[key] = c
                     mark_visited(c)
@@ -540,7 +551,8 @@ class GraphBuilder:
         k = self.cfg.size_kmer
         if len(seq) < k:
             return seq
-        wk = self.codec_s.key_windows(seq)
+        with M.span("keys"):
+            wk = self.codec_s.key_windows(seq)
         pos = np.nonzero(self._is_sink(wk))[0]
         if not len(pos):
             return seq

@@ -1,5 +1,8 @@
 # Host code copied verbatim from faucet_tpu/graph/clean.py; only the imports point
-# at faucet_tpu_torch, whose modules import no jax.
+# at faucet_tpu_torch, whose modules import no jax. One departure:
+# pop_bubbles groups arms by `arm_key` (end nodes and the sides they are
+# joined by), where the reference groups by the end nodes alone and so
+# deletes a true chunk next to a repeat of four or more copies.
 """Graph cleaning passes over the host-side compacted graph.
 
 Reference analogue: ContigGraph's cleaning pipeline — deleteTipsAndClean,
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from faucet_tpu_torch.graph.model import ContigGraph
+from faucet_tpu_torch.graph.model import Contig, ContigGraph
 
 
 TIP_KEEP_RATIO = 0.8   # tips >= 2k keeping >= ratio x the anchor's
@@ -370,13 +373,26 @@ def seq_rank64(s: str) -> int:
     return h
 
 
+def arm_key(c: Contig) -> tuple:
+    """The bubble group of a contig between two junction nodes: each end
+    node with the side of it the contig leaves or enters by (slot >= 4:
+    the node's left side), in node order. Two arms of one bubble leave
+    one node by the same side and enter the other by the same side,
+    whichever way each is stored; a repeat's contig and a chunk from the
+    repeat's end back to its start join the same two nodes by the other
+    sides, and are no bubble."""
+    return tuple(sorted(((c.left.node, c.left.slot >= 4),
+                         (c.right.node, c.right.slot >= 4))))
+
+
 def pop_bubbles(g: ContigGraph, ratio: float = 0.25) -> int:
     """Delete low-coverage parallel arms: when >=2 contigs connect the
-    SAME pair of junction nodes, arms at <= ratio x the strongest arm's
-    coverage are sequencing-error paths (a doubled error creates a
-    ~read-length bubble whose arm coverage tracks the error multiplicity
-    — often ABOVE the absolute min_cov floor at high depth, which is
-    exactly why an absolute threshold cannot remove it). SURVEY.md §A.7b
+    SAME pair of junction nodes by the same sides (`arm_key`), arms at
+    <= ratio x the strongest arm's coverage are sequencing-error paths
+    (a doubled error creates a ~read-length bubble whose arm coverage
+    tracks the error multiplicity — often ABOVE the absolute min_cov
+    floor at high depth, which is exactly why an absolute threshold
+    cannot remove it). SURVEY.md §A.7b
     sanctions a relative chimera threshold; real parallel repeats keep
     comparable coverage on both arms and are preserved.
 
@@ -402,8 +418,7 @@ def pop_bubbles(g: ContigGraph, ratio: float = 0.25) -> int:
         c = g.contigs[i]
         if c.circular or c.left is None or c.right is None:
             continue
-        key = tuple(sorted((c.left.node, c.right.node)))
-        arms.setdefault(key, []).append(i)
+        arms.setdefault(arm_key(c), []).append(i)
     kills, resurvey = [], []
     for idxs in arms.values():
         if len(idxs) < 2:

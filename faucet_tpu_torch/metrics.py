@@ -12,8 +12,10 @@ and adds the port's own records:
   counterpart of: `host_syncs` (blocking reads, one per `fetch`),
   `table_probe_rounds` (probe rounds issued from the host: the CPU's
   torch rounds; on the card a table upsert is one launch, counted in
-  `upsert_launches`), `walk_rounds`, `walk_steps`, `node_keys` (lanes
-  handed to the branch-node cascade's insert), `spool_flushes` and
+  `upsert_launches`), `walk_rounds`, `walk_steps`, `pass2_seeds` and
+  `pass2_dups` (the graph build's pass-2 sink anchors walked and
+  contigs dropped as near-duplicates), `node_keys` (lanes handed to the
+  branch-node cascade's insert), `spool_flushes` and
   `<kernel>_launches` for each kernel entry, counted by kernels/build.py
   `launch`: `probe`, `cascade` (and by the reference's variant,
   `cascade_dense`, `cascade_sparse`, `cascade_multi_tile`),

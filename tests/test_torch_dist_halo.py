@@ -138,6 +138,38 @@ def test_equal_length_bubble_pops_in_both():
     _assert_near(t_sig, _sig(g_seq))
 
 
+def _planted_four_copy_repeat():
+    """A repeat's contig from node X to node Y (leaving X by its right
+    side, entering Y by its left) at 100x, and the four chunks between its
+    copies from Y back to X (leaving Y by its right side, entering X by
+    its left) at 24x each, under a quarter of the repeat's: no bubble, so
+    no arm may go (ROADMAP C3)."""
+    g = ContigGraph(21)
+    X = "ACGTG" * 4 + "A"
+    Y = "TTGCA" * 4 + "C"
+    g.add_contig(Contig(seq="G" * 400, cov=100.0, left=End(X, 0),
+                        right=End(Y, 5)))
+    for i in range(4):
+        g.add_contig(Contig(seq="ACGT"[i] * (1000 + 100 * i), cov=24.0,
+                            left=End(Y, i), right=End(X, 4 + i)))
+    return g
+
+
+def test_a_four_copy_repeat_keeps_its_chunks_in_both_cleaners():
+    """The port's sequential and partitioned cleaners keep all five
+    contigs; the reference's, which groups arms by their end nodes alone,
+    deletes the four chunks (ROADMAP C2, the port diverges)."""
+    g_seq = _planted_four_copy_repeat()
+    st = clean(g_seq, max_tip_len=0, min_cov=0.0, do_tips=False)
+    assert st["bubbles"] == 0 and len(g_seq.live()) == 5
+    t_st, t_sig, j_st, j_sig = both(_planted_four_copy_repeat(),
+                                    max_tip_len=0, min_cov=0.0,
+                                    do_tips=False)
+    assert t_st["bubbles"] == 0 and len(t_sig) == 5
+    _assert_near(t_sig, _sig(g_seq))
+    assert j_st["bubbles"] == 4 and len(j_sig) == 1
+
+
 @pytest.mark.parametrize("use_mesh", [False, True])
 def test_exchange_fixed_capacity_discipline(use_mesh):
     """Every trip moves the same n*n*CAP*W buffer; rows arrive intact and
